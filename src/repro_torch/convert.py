@@ -1,4 +1,4 @@
-"""Carry parameters of the JAX reference into the port's modules.
+"""Carry parameters of the JAX reference into the port's models.
 
 torch cannot replay `jax.random`, so a test that runs both packages on the
 same weights draws or inits them once, turns them into numpy arrays, and
@@ -29,3 +29,44 @@ def icu_lstm_params_from_numpy(tree) -> Dict[str, torch.Tensor]:
     out["head"] = _tensor(tree["head"])
     out["head_b"] = _tensor(tree["head_b"])
     return out
+
+
+def _leaf(a) -> torch.Tensor:
+    """A numpy array (ml_dtypes bfloat16 included) as a CPU tensor of the
+    same dtype and values."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+    return torch.from_numpy(np.array(a, copy=True))
+
+
+def _tree(tree):
+    if isinstance(tree, dict):
+        return {k: _tree(v) for k, v in tree.items()}
+    return _leaf(tree)
+
+
+def decoder_params_from_numpy(tree, cfg) -> Dict:
+    """The reference's `DecoderModel.init` pytree as numpy arrays
+    (group leaves stacked on a leading num_groups axis, the shared block
+    under stack.shared) as the port's `DecoderModel` parameters: the same
+    tree of leaf names, each leaf a CPU tensor of the same dtype."""
+    out = _tree(tree)
+    groups = out["stack"]["groups"]
+    for i, kind in enumerate(cfg.group_pattern):
+        key = f"b{i}_{kind}"
+        if key not in groups:
+            raise ValueError(f"the tree has no group leaf {key!r}")
+        lead = {int(t.shape[0]) for t in _leaves(groups[key])}
+        if lead != {cfg.num_groups}:
+            raise ValueError(f"{key}: leading axes {sorted(lead)} != "
+                             f"num_groups {cfg.num_groups}")
+    return out
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree

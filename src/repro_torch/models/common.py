@@ -1,16 +1,136 @@
-"""Parameter init helpers."""
+"""Shared building blocks: norms, RoPE, MLPs, causal conv, init helpers.
+
+Parameters are plain dicts of tensors with the reference's leaf names and
+layouts. Init helpers draw on the device of the `torch.Generator` they are
+given, so a full-width model is drawn on the card, not on the host.
+"""
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+
+f32 = torch.float32
 
 
+def torch_dtype(name: str) -> torch.dtype:
+    """The torch dtype a config's dtype string ("bfloat16", ...) names."""
+    return getattr(torch, name)
+
+
+# ---------------------------------------------------------------- init utils
 def dense_init(generator: torch.Generator, in_dim: int, *out_dims: int,
-               dtype: torch.dtype = torch.float32) -> torch.Tensor:
+               dtype: torch.dtype = f32) -> torch.Tensor:
     """Normal weights of shape (in_dim, *out_dims), std 1/sqrt(in_dim),
-    drawn on the CPU from `generator`."""
+    drawn in float32 on the generator's device."""
     shape = (in_dim, *out_dims)
     std = 1.0 / math.sqrt(in_dim)
-    return (torch.randn(shape, generator=generator, dtype=torch.float32)
-            * std).to(dtype)
+    return (torch.randn(shape, generator=generator, dtype=f32,
+                        device=generator.device) * std).to(dtype)
+
+
+def embed_init(generator: torch.Generator, vocab: int, dim: int,
+               dtype: torch.dtype = f32) -> torch.Tensor:
+    return (torch.randn((vocab, dim), generator=generator, dtype=f32,
+                        device=generator.device)
+            * (1.0 / math.sqrt(dim))).to(dtype)
+
+
+# ---------------------------------------------------------------------- norm
+def rms_norm(x: torch.Tensor, gamma: torch.Tensor,
+             eps: float) -> torch.Tensor:
+    xf = x.to(f32)
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    out = xf * torch.rsqrt(var + eps) * (1.0 + gamma.to(f32))
+    return out.to(x.dtype)
+
+
+def norm_init(dim: int, dtype: torch.dtype = f32,
+              device: torch.device | str = "cpu") -> torch.Tensor:
+    # stored as (gamma - 1): zeros init, gemma convention (1 + g)
+    return torch.zeros((dim,), dtype=dtype, device=device)
+
+
+# ---------------------------------------------------------------------- rope
+def rope(x: torch.Tensor, positions: torch.Tensor,
+         theta: float) -> torch.Tensor:
+    """x: (..., L, D) with D even; positions: broadcastable to (..., L)."""
+    d = x.shape[-1]
+    half = d // 2
+    freq = theta ** (-torch.arange(0, half, dtype=f32, device=x.device)
+                     / half)
+    ang = positions[..., None].to(f32) * freq          # (..., L, half)
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    x1, x2 = x[..., :half].to(f32), x[..., half:].to(f32)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ----------------------------------------------------------------------- mlp
+def mlp_init(generator: torch.Generator, cfg: ModelConfig,
+             d_ff: Optional[int] = None,
+             dtype: Optional[torch.dtype] = None) -> dict:
+    dtype = dtype or torch_dtype(cfg.dtype)
+    d_ff = d_ff or cfg.d_ff
+    p = {"norm": norm_init(cfg.d_model, dtype, generator.device),
+         "w_up": dense_init(generator, cfg.d_model, d_ff, dtype=dtype),
+         "w_down": dense_init(generator, d_ff, cfg.d_model, dtype=dtype)}
+    if cfg.mlp_type in ("swiglu", "geglu"):
+        p["w_gate"] = dense_init(generator, cfg.d_model, d_ff, dtype=dtype)
+    return p
+
+
+def mlp_apply(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    h = rms_norm(x, p["norm"], cfg.norm_eps)
+    up = h @ p["w_up"]
+    # jax.nn.gelu defaults to the tanh approximation
+    if cfg.mlp_type == "swiglu":
+        up = F.silu(h @ p["w_gate"]) * up
+    elif cfg.mlp_type == "geglu":
+        up = F.gelu(h @ p["w_gate"], approximate="tanh") * up
+    else:
+        up = F.gelu(up, approximate="tanh")
+    return x + up @ p["w_down"]
+
+
+# --------------------------------------------------------------- causal conv
+def causal_conv_init(generator: torch.Generator, channels: int, width: int,
+                     dtype: torch.dtype = f32) -> dict:
+    w = torch.randn((width, channels), generator=generator, dtype=f32,
+                    device=generator.device) / math.sqrt(width)
+    return {"w": w.to(dtype),
+            "b": torch.zeros((channels,), dtype=dtype,
+                             device=generator.device)}
+
+
+def causal_conv_apply(p: dict, x: torch.Tensor,
+                      state: Optional[torch.Tensor] = None
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Depthwise causal conv. x: (B, L, C); state: (B, width-1, C) history.
+
+    Returns (y, new_state). With state=None a zero history is used.
+    """
+    w, b = p["w"], p["b"]
+    width = w.shape[0]
+    bsz, l, c = x.shape
+    if state is None:
+        state = x.new_zeros((bsz, width - 1, c))
+    xp = torch.cat([state, x], dim=1)                 # (B, L+width-1, C)
+    xpf, wf = xp.to(f32), w.to(f32)                   # cast once, not per tap
+    y = torch.zeros((bsz, l, c), dtype=f32, device=x.device)
+    for i in range(width):                            # width is tiny (4)
+        y = y + xpf[:, i:i + l] * wf[i]
+    y = y + b.to(f32)
+    # last width-1 inputs, copied so the cache does not keep xp alive
+    new_state = xp[:, l:].clone()
+    return y.to(x.dtype), new_state
+
+
+def softcap(x: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
+    if cap is None:
+        return x
+    return (cap * torch.tanh(x.to(f32) / cap)).to(x.dtype)

@@ -1,0 +1,206 @@
+"""Decoder-only model: embeddings + a stack of block groups + LM head.
+
+Parameters keep the reference's pytree: {"embed", "final_norm", "stack":
+{"groups": {"b<i>_<kind>": ...}, "shared": ...}, "unembed"}, each group
+leaf stacked on a leading num_groups axis, and the shared attention block
+(zamba2) initialised once and routed through ctx. The reference's
+`lax.scan` over groups is a Python loop here; decode caches are a list
+with one dict per group, and the decode position is a host int, so a
+decode step reads nothing back from the card. The reference's sharding
+constraints have no counterpart on one card and are left out. `loss` and
+`chunked_nll` wait for the training slice.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+from repro_torch.configs import base
+from repro_torch.configs.base import ModelConfig
+from repro_torch.device import resolve_device
+from repro_torch.models import blocks, common
+
+AUX_KEYS = ("moe_aux",)
+VOCAB_PAD_MULTIPLE = 256   # the reference pads the vocab to shard it evenly
+
+
+def padded_vocab(vocab_size: int) -> int:
+    m = VOCAB_PAD_MULTIPLE
+    return ((vocab_size + m - 1) // m) * m
+
+
+def _mask_vocab_pad(logits: torch.Tensor, vocab_size: int) -> torch.Tensor:
+    """-1e30 on the padding logits (additive, keeps the padded shape)."""
+    vpad = logits.shape[-1]
+    if vpad == vocab_size:
+        return logits
+    pad = torch.arange(vpad, device=logits.device) >= vocab_size
+    return logits + torch.where(pad, -1e30, 0.0).to(logits.dtype)
+
+
+def _stack_trees(trees: list) -> dict:
+    """[{leaf: (...)}, ...] -> {leaf: (len(trees), ...)}, nested dicts."""
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: _stack_trees([t[k] for t in trees]) for k in first}
+    return torch.stack(trees)
+
+
+def _index(tree, g: int):
+    """Group g of a stacked tree (views, no copy)."""
+    if isinstance(tree, dict):
+        return {k: _index(v, g) for k, v in tree.items()}
+    return tree[g]
+
+
+class TransformerStack:
+    """num_groups copies of cfg.group_pattern, applied one after another.
+    Shared-weight blocks (zamba2) are initialised once and reach the
+    blocks through ctx."""
+
+    def __init__(self, cfg: ModelConfig):
+        self.cfg = cfg
+        self.pattern = cfg.group_pattern
+        self.num_groups = cfg.num_groups
+        self.has_shared = base.SHARED_ATTN in self.pattern
+
+    def init(self, generator: torch.Generator) -> dict:
+        groups = [{f"b{i}_{kind}": blocks.init_block(kind, generator,
+                                                     self.cfg)
+                   for i, kind in enumerate(self.pattern)}
+                  for _ in range(self.num_groups)]
+        p = {"groups": _stack_trees(groups)}
+        if self.has_shared:
+            p["shared"] = blocks._init_attn_mlp(generator, self.cfg)
+        return p
+
+    def apply(self, p: dict, x: torch.Tensor, ctx: dict,
+              caches: Optional[list] = None, mode: str = "train"):
+        """caches: one dict per group (decode) or None.
+
+        Returns (x, caches_out | None, aux dict)."""
+        ctx = dict(ctx)
+        if self.has_shared:
+            ctx["shared_attn"] = p["shared"]
+        collect = mode in ("prefill", "decode")
+        caches_out = [] if collect else None
+        aux_sum = {k: 0.0 for k in AUX_KEYS}
+        for g in range(self.num_groups):
+            gp = _index(p["groups"], g)
+            gcache = caches[g] if mode == "decode" else None
+            out = {}
+            for i, kind in enumerate(self.pattern):
+                key = f"b{i}_{kind}"
+                x, c_out, aux = blocks.apply_block(
+                    kind, gp[key], x, ctx,
+                    gcache[key] if gcache is not None else None, mode)
+                for k in AUX_KEYS:
+                    aux_sum[k] = aux_sum[k] + aux.get(k, 0.0)
+                out[key] = c_out
+            if collect:
+                caches_out.append(out)
+        return x, caches_out, aux_sum
+
+    def empty_caches(self, batch: int, cache_len: int, dtype: torch.dtype,
+                     device: torch.device) -> list:
+        return [{f"b{i}_{kind}": blocks.empty_block_cache(
+                    kind, self.cfg, batch, cache_len, dtype, device)
+                 for i, kind in enumerate(self.pattern)}
+                for _ in range(self.num_groups)]
+
+
+class DecoderModel:
+    """tokens -> logits, with KV/state caches.
+
+    batch dict keys: "tokens" (B, L) integer token ids."""
+
+    def __init__(self, cfg: ModelConfig):
+        self.cfg = cfg
+        self.stack = TransformerStack(cfg)
+
+    # ------------------------------------------------------------- params
+    def init(self, generator: Optional[torch.Generator] = None,
+             device: str | torch.device | None = None) -> dict:
+        """Parameters drawn on `device` (default "cuda"; pass device="cpu"
+        for the plain path) from `generator`, which must live there
+        (default: seed 0). Constant leaves as in the reference: norms,
+        lora_b, dt_bias, a_log and conv biases 0, d_skip 1."""
+        dev = resolve_device(device)
+        if generator is None:
+            generator = torch.Generator(device=dev).manual_seed(0)
+        elif generator.device.type != dev.type:
+            raise ValueError(f"the generator lives on {generator.device}, "
+                             f"the parameters are drawn on {dev}")
+        cfg = self.cfg
+        dtype = common.torch_dtype(cfg.dtype)
+        vpad = padded_vocab(cfg.vocab_size)
+        p = {"embed": common.embed_init(generator, vpad, cfg.d_model, dtype),
+             "final_norm": common.norm_init(cfg.d_model, dtype, dev),
+             "stack": self.stack.init(generator)}
+        if not cfg.tie_embeddings:
+            p["unembed"] = common.dense_init(generator, cfg.d_model, vpad,
+                                             dtype=dtype)
+        return p
+
+    # -------------------------------------------------------------- pieces
+    def _embed(self, p: dict, tokens: torch.Tensor) -> torch.Tensor:
+        x = p["embed"][tokens]
+        # sqrt(d) rounded to the model's dtype, as the reference scales;
+        # a Python scalar, so nothing is copied to the device
+        scale = float(torch.tensor(math.sqrt(self.cfg.d_model),
+                                   dtype=x.dtype))
+        return x * scale
+
+    def _head(self, p: dict, x: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        x = common.rms_norm(x, p["final_norm"], cfg.norm_eps)
+        w = p["embed"].t() if cfg.tie_embeddings else p["unembed"]
+        logits = (x @ w).to(torch.float32)
+        if cfg.final_logit_softcap is not None:
+            logits = common.softcap(logits, cfg.final_logit_softcap)
+        return _mask_vocab_pad(logits, cfg.vocab_size)
+
+    def _ctx(self, cache_len: int = 0) -> dict:
+        return {"cfg": self.cfg, "causal": True, "cache_len": cache_len}
+
+    # ---------------------------------------------------------------- api
+    def forward(self, p: dict, batch: dict):
+        """Full-sequence forward. Returns (logits, aux)."""
+        x = self._embed(p, batch["tokens"])
+        x, _, aux = self.stack.apply(p["stack"], x, self._ctx(),
+                                     mode="train")
+        return self._head(p, x), aux
+
+    def prefill(self, p: dict, batch: dict, max_len: Optional[int] = None):
+        """Returns (last-token logits (B, V), cache).
+
+        max_len: total context budget (prompt + decode steps); defaults to
+        the prompt length (no decode growth room)."""
+        tokens = batch["tokens"]
+        cache_len = max_len or tokens.shape[1]
+        x = self._embed(p, tokens)
+        x, caches, _ = self.stack.apply(p["stack"], x, self._ctx(cache_len),
+                                        mode="prefill")
+        logits = self._head(p, x[:, -1:])[:, 0]
+        return logits, {"pos": tokens.shape[1], "groups": caches}
+
+    def decode_step(self, p: dict, token: torch.Tensor, cache: dict):
+        """token: (B,) ids; returns (logits (B, V), cache). The KV caches
+        are written in place."""
+        x = self._embed(p, token[:, None])
+        ctx = dict(self._ctx(), pos=cache["pos"])
+        x, caches, _ = self.stack.apply(p["stack"], x, ctx,
+                                        caches=cache["groups"],
+                                        mode="decode")
+        logits = self._head(p, x)[:, 0]
+        return logits, {"pos": cache["pos"] + 1, "groups": caches}
+
+    def init_cache(self, batch: int, cache_len: int,
+                   device: str | torch.device | None = None) -> dict:
+        """Zero decode cache (for fresh decode sessions)."""
+        dtype = common.torch_dtype(self.cfg.dtype)
+        return {"pos": 0,
+                "groups": self.stack.empty_caches(batch, cache_len, dtype,
+                                                  resolve_device(device))}

@@ -1,0 +1,150 @@
+"""The port's attention on the CPU against the JAX reference: the plain
+oracles (`attention_reference`, `attention_blockwise`), the flash kernel's
+plain version, the op the models call, and the wrapper's checks. Inputs
+are drawn with numpy from a seed and handed to both packages. The CUDA
+kernel itself is held against the plain version on the card
+(tests/test_torch_cuda.py, chip_smoke.py). Tolerance 2e-5 in float32, as
+tests/test_kernels.py holds the Pallas kernel."""
+import functools
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops as jax_ops
+from repro.kernels import ref as jax_ref
+from repro.kernels.flash_attention import flash_attention as pallas_flash
+from repro_torch.kernels import ops, ref
+from repro_torch.kernels.flash_attention import (flash_attention,
+                                                 flash_attention_plain)
+
+# tests/test_kernels.py::ATTN_CASES
+ATTN_CASES = [
+    # b, hq, hkv, lq, lk, d, causal, window, softcap
+    (2, 4, 2, 256, 256, 64, True, None, None),
+    (1, 8, 1, 128, 128, 128, True, None, 50.0),     # MQA + softcap (gemma)
+    (2, 4, 4, 256, 256, 64, True, 128, None),       # sliding window
+    (1, 4, 2, 128, 512, 64, True, None, None),      # chunked prefill tail
+    (1, 2, 2, 1, 256, 64, True, None, None),        # single-token decode
+    (2, 2, 2, 128, 128, 32, False, None, None),     # bidirectional (encoder)
+    (1, 4, 4, 256, 256, 64, True, 64, 30.0),        # window + softcap
+]
+ATOL = 2e-5
+PORT_FNS = {"attention_reference": ref.attention_reference,
+            "attention_blockwise": ref.attention_blockwise,
+            "flash_attention_plain": flash_attention_plain}
+
+
+def _qkv(b, hq, hkv, lq, lk, d, seed):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((b, hq, lq, d), dtype=np.float32),
+            rng.standard_normal((b, hkv, lk, d), dtype=np.float32),
+            rng.standard_normal((b, hkv, lk, d), dtype=np.float32))
+
+
+@functools.lru_cache(maxsize=None)
+def _case(case):
+    """Inputs of one case and the two JAX answers: the Pallas kernel in
+    interpret mode and the jnp oracle."""
+    b, hq, hkv, lq, lk, d, causal, window, softcap = case
+    q, k, v = _qkv(b, hq, hkv, lq, lk, d, seed=sum(case[:6]))
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    jq, jk, jv = map(jnp.asarray, (q, k, v))
+    pallas = np.asarray(pallas_flash(jq, jk, jv, interpret=True, **kw))
+    oracle = np.asarray(jax_ref.attention_reference(jq, jk, jv, **kw))
+    return (q, k, v), kw, pallas, oracle
+
+
+@pytest.mark.parametrize("fn", sorted(PORT_FNS))
+@pytest.mark.parametrize("case", ATTN_CASES, ids=str)
+def test_port_attention_matches_pallas_and_oracle(case, fn):
+    (q, k, v), kw, pallas, oracle = _case(case)
+    out = PORT_FNS[fn](*map(torch.from_numpy, (q, k, v)), **kw)
+    assert out.dtype == torch.float32 and out.shape == q.shape
+    np.testing.assert_allclose(out.numpy(), pallas, atol=ATOL, rtol=ATOL)
+    np.testing.assert_allclose(out.numpy(), oracle, atol=ATOL, rtol=ATOL)
+
+
+@pytest.mark.parametrize("window", [None, 96])
+def test_blockwise_long_matches_reference(window):
+    """tests/test_kernels.py::test_attention_blockwise_matches_reference,
+    port against JAX."""
+    q, k, v = _qkv(2, 4, 2, 1024, 1024, 32, seed=7)
+    jq, jk, jv = map(jnp.asarray, (q, k, v))
+    want = np.asarray(jax_ref.attention_blockwise(
+        jq, jk, jv, causal=True, window=window, block_q=256))
+    tq, tk, tv = map(torch.from_numpy, (q, k, v))
+    out = ref.attention_blockwise(tq, tk, tv, causal=True, window=window,
+                                  block_q=256)
+    np.testing.assert_allclose(out.numpy(), want, atol=ATOL, rtol=ATOL)
+    full = ref.attention_reference(tq, tk, tv, causal=True, window=window)
+    np.testing.assert_allclose(out.numpy(), full.numpy(), atol=ATOL,
+                               rtol=ATOL)
+
+
+@pytest.mark.parametrize("lq", [128, 1024])
+def test_ops_attention_on_cpu_takes_the_reference_path(lq):
+    """On CPU tensors `ops.attention` runs the plain path the reference's
+    op takes off the TPU (blockwise from Lq = 1024) and launches no
+    kernel."""
+    q, k, v = _qkv(1, 2, 1, lq, lq, 32, seed=lq)
+    want = np.asarray(jax_ops.attention(*map(jnp.asarray, (q, k, v)),
+                                        causal=True))
+    before = flash_attention.launches
+    out = ops.attention(*map(torch.from_numpy, (q, k, v)), causal=True)
+    assert flash_attention.launches == before
+    np.testing.assert_allclose(out.numpy(), want, atol=ATOL, rtol=ATOL)
+
+
+def test_plain_gives_zero_for_rows_with_no_live_key():
+    """A row with no live key: the Pallas kernel gives 0 and so does the
+    plain version; the oracle averages over all keys (ROADMAP queue 3)."""
+    q, k, v = _qkv(1, 2, 2, 64, 64, 32, seed=3)
+    kw = dict(causal=True, window=0)
+    want = np.asarray(pallas_flash(*map(jnp.asarray, (q, k, v)),
+                                   interpret=True, **kw))
+    out = flash_attention_plain(*map(torch.from_numpy, (q, k, v)), **kw)
+    assert not np.any(want)
+    np.testing.assert_array_equal(out.numpy(), want)
+    oracle = ref.attention_reference(*map(torch.from_numpy, (q, k, v)), **kw)
+    assert float(oracle.abs().max()) > 0
+
+
+def test_wrapper_on_cpu_is_the_plain_version():
+    q, k, v = map(torch.from_numpy, _qkv(2, 4, 2, 40, 100, 80, seed=11))
+    before = flash_attention.launches
+    out = flash_attention(q, k, v, causal=True, window=33)
+    assert flash_attention.launches == before
+    torch.testing.assert_close(
+        out, flash_attention_plain(q, k, v, causal=True, window=33),
+        atol=0, rtol=0)
+
+
+def _args(**change):
+    args = dict(zip("qkv", map(torch.from_numpy,
+                               _qkv(1, 4, 2, 16, 32, 8, seed=0))))
+    args.update(change)
+    return args
+
+
+@pytest.mark.parametrize("change,msg", [
+    ({"q": torch.zeros(1, 3, 16, 8)}, r"GQA needs Hq % Hkv == 0, got \(3, 2\)"),
+    ({"q": torch.zeros(1, 4, 33, 8)}, "must not exceed"),
+    ({"k": torch.zeros(1, 2, 32, 4)}, "must"),
+    ({"v": torch.zeros(1, 2, 31, 8)}, "must"),
+    ({"q": torch.zeros(4, 16, 8)}, "4 dims"),
+    ({"q": torch.zeros(1, 4, 8, 16).transpose(2, 3)}, "contiguous"),
+], ids=["gqa", "lq>lk", "k-dim", "v-shape", "ndim", "contiguous"])
+def test_wrapper_rejects_bad_inputs(change, msg):
+    with pytest.raises(ValueError, match=msg):
+        flash_attention(**_args(**change))
+
+
+@pytest.mark.parametrize("change", [
+    {"q": torch.zeros(1, 4, 16, 8, dtype=torch.float16)},
+    {"k": torch.zeros(1, 2, 32, 8, dtype=torch.bfloat16)},
+], ids=["float16", "mixed"])
+def test_wrapper_rejects_bad_dtypes(change):
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        flash_attention(**_args(**change))

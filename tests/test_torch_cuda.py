@@ -1,5 +1,7 @@
-"""Tests that need the card: the CUDA lstm_cell kernel against its plain
-version, and the device search on CUDA against the same search on the CPU.
+"""Tests that need the card: the CUDA kernels (lstm_cell, flash_attention,
+ssm_scan) against their plain versions, the reduced zamba2 model on CUDA
+against the same model on the CPU, and the device search on CUDA against
+the same search on the CPU.
 Marked `cuda`; each skips with a reason where torch sees no CUDA device.
 Run them on a GPU machine with
 
@@ -12,7 +14,12 @@ import torch
 from repro_torch.core import scheduler_torch
 from repro_torch.core import simulator as port_sim
 from repro_torch.core.tiers import CC, ED, ES
+from repro_torch.configs import get_config
+from repro_torch.kernels.flash_attention import (flash_attention,
+                                                 flash_attention_plain)
 from repro_torch.kernels.lstm_cell import lstm_cell, lstm_cell_plain
+from repro_torch.kernels.ssm_scan import ssm_scan, ssm_scan_plain
+from repro_torch.models import build_model
 
 pytestmark = pytest.mark.cuda
 
@@ -68,3 +75,105 @@ def test_device_search_cuda_matches_cpu(cuda, objective, fleet):
     for a, b in zip(a_gpu, a_cpu):
         np.testing.assert_array_equal(a, b)
     np.testing.assert_array_equal(v_gpu, v_cpu)
+
+
+# tests/test_kernels.py::ATTN_CASES, then zamba2's prefill shape and
+# ragged cases: b, hq, hkv, lq, lk, d, causal, window, softcap
+FLASH_CASES = [
+    (2, 4, 2, 256, 256, 64, True, None, None),
+    (1, 8, 1, 128, 128, 128, True, None, 50.0),
+    (2, 4, 4, 256, 256, 64, True, 128, None),
+    (1, 4, 2, 128, 512, 64, True, None, None),
+    (1, 2, 2, 1, 256, 64, True, None, None),
+    (2, 2, 2, 128, 128, 32, False, None, None),
+    (1, 4, 4, 256, 256, 64, True, 64, 30.0),
+    (4, 32, 32, 512, 512, 80, True, None, None),
+    (1, 4, 2, 1, 300, 64, True, None, None),
+    (2, 4, 2, 100, 100, 80, True, 33, None),
+    (1, 8, 1, 64, 64, 256, False, None, 50.0),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", FLASH_CASES, ids=str)
+def test_flash_attention_kernel_matches_plain(cuda, case, dtype):
+    b, hq, hkv, lq, lk, d, causal, window, softcap = case
+    g = torch.Generator().manual_seed(sum(case[:6]))
+    q = torch.randn(b, hq, lq, d, generator=g).to(cuda, dtype)
+    k = torch.randn(b, hkv, lk, d, generator=g).to(cuda, dtype)
+    v = torch.randn(b, hkv, lk, d, generator=g).to(cuda, dtype)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    before = flash_attention.launches
+    out = flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    assert out.dtype == dtype and out.shape == q.shape
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(out.float(),
+                               flash_attention_plain(q, k, v, **kw).float(),
+                               atol=tol, rtol=tol)
+
+
+# tests/test_kernels.py::SSM_CASES (b, l, h, p, n), zamba2's prefill, then
+# ragged shapes (H * P not a multiple of a block's 64 rows, N not a power
+# of two, L not a multiple of the 32 staged steps)
+SSM_SHAPES = [(2, 64, 2, 8, 16), (2, 128, 4, 16, 16), (1, 256, 8, 32, 64),
+              (4, 512, 80, 64, 64), (2, 37, 3, 24, 20), (1, 70, 5, 80, 128)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", SSM_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_ssm_scan_kernel_matches_plain(cuda, shape, dtype):
+    b, l, h, p, n = shape
+    g = torch.Generator().manual_seed(sum(shape))
+    x = torch.randn(b, l, h, p, generator=g).to(cuda, dtype)
+    dt = torch.nn.functional.softplus(
+        torch.randn(b, l, h, generator=g)).to(cuda)
+    a = -torch.exp(torch.randn(h, generator=g) * 0.5).to(cuda)
+    bm = torch.randn(b, l, n, generator=g).to(cuda, dtype)
+    cm = torch.randn(b, l, n, generator=g).to(cuda, dtype)
+    d = torch.randn(h, generator=g).to(cuda)
+    before = ssm_scan.launches
+    y, hf = ssm_scan(x, dt, a, bm, cm, d)
+    torch.cuda.synchronize()
+    assert ssm_scan.launches == before + 1
+    y_p, h_p = ssm_scan_plain(x, dt, a, bm, cm, d)
+    # y is rounded to bf16 on output; the state is float32 on both sides
+    tol = 3e-4 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(y.float(), y_p.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(hf, h_p, atol=3e-4, rtol=3e-4)
+
+
+def test_reduced_zamba2_cuda_matches_cpu(cuda):
+    """Prefill and greedy decode of the reduced zamba2 on the card (the
+    kernels) against the same parameters on the CPU (the plain path)."""
+    model = build_model(get_config("zamba2-2.7b").reduced(d_model=128,
+                                                          vocab=256))
+    params = model.init(torch.Generator(cuda).manual_seed(0), device=cuda)
+    cpu = _to(params, "cpu")
+    tokens = torch.randint(0, 256, (2, 96),
+                           generator=torch.Generator().manual_seed(1))
+    f0, s0 = flash_attention.launches, ssm_scan.launches
+    with torch.inference_mode():
+        lg, cg = model.prefill(params, {"tokens": tokens.to(cuda)},
+                               max_len=100)
+        lc, cc = model.prefill(cpu, {"tokens": tokens}, max_len=100)
+        assert (flash_attention.launches - f0, ssm_scan.launches - s0) \
+            == (1, 5)
+        torch.testing.assert_close(lg.cpu(), lc, atol=1e-4, rtol=1e-4)
+        tok = lc.argmax(-1)
+        for _ in range(4):
+            lg, cg = model.decode_step(params, tok.to(cuda), cg)
+            lc, cc = model.decode_step(cpu, tok, cc)
+            torch.testing.assert_close(lg.cpu(), lc, atol=1e-4, rtol=1e-4)
+            tok = lc.argmax(-1)
+    assert (flash_attention.launches - f0, ssm_scan.launches - s0) == (1, 5)
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    return tree.to(device)
