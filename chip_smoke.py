@@ -6,20 +6,23 @@ check it end to end.
 
 Phases, each of which raises on failure:
   1. environment: the card's name and power limit, torch and CUDA versions;
-  2. build: every CUDA kernel (lstm_cell, flash_attention, ssm_scan), from
-     the sources in this checkout, all nvcc processes at once;
+  2. build: every CUDA kernel (lstm_cell, flash_attention, ssm_scan,
+     mlstm_chunk), from the sources in this checkout, all nvcc processes
+     at once;
   3. each kernel against its plain PyTorch version on the card, at its
      test shapes and at the shapes the main paths give it;
-  4. the ICU LSTM models, and zamba2 at full width with one group, on the
-     card (kernel path) against the same models on the CPU (plain path);
+  4. the ICU LSTM models, and zamba2 and xlstm-350m at full width with one
+     group, on the card (kernel path) against the same models on the CPU
+     (plain path);
   5. the device tabu search on CUDA against the same search on the CPU;
-  6. the main paths, each with its launch counters set to 0 just before it
-     and read just after:
+  6. the main paths, each with every launch counter set to 0 just before
+     it and read just after:
      a. `repro_torch.launch.serve.run(patients=100)`: calibrate, strategy
         table, lower bound, execution (lstm_cell);
      b. `ServingEngine(build_model(get_config("zamba2-2.7b"))).generate`
         at full width and depth in bf16: 4 prompts of 512 tokens, 32
         greedy steps (flash_attention, ssm_scan);
+     c. the same for xlstm-350m (mlstm_chunk);
   7. timings with CUDA events, each printed beside the card's name and
      power limit;
   8. one more run of each main path under torch.profiler: device busy
@@ -82,13 +85,28 @@ ZAMBA_SSM = (4, 512, 80, 64, 64)
 RAGGED_SSM = [(2, 37, 3, 24, 20), (1, 70, 5, 80, 128)]
 SSM_TOL = 3e-4
 SSM_BF16_Y_TOL = 2e-2
-# zamba2 full width, one group (5 Mamba2 + 1 shared attention), float32,
-# card vs CPU on the same parameters: float32 sums in another order over
-# d_model = 2560
-ZAMBA_MODEL_TOL = 2e-3
-ZAMBA_PROMPT = 512
-ZAMBA_BATCH = 4
-ZAMBA_STEPS = 32
+# zamba2 (5 Mamba2 + 1 shared attention) and xlstm-350m (7 mLSTM + 1
+# sLSTM) at full width with one group, float32, card vs CPU on the same
+# parameters: float32 sums in another order over d_model = 2560 / 1024
+ONE_GROUP_TOL = 2e-3
+# the LLM serving paths: generate(make_batch(cfg, 4, 512), steps=32)
+GEN_PROMPT = 512
+GEN_BATCH = 4
+GEN_STEPS = 32
+# mlstm_chunk: tests/test_kernels.py::MLSTM_CASES, the reduced xlstm's
+# D = 128, xlstm-350m's prefill shape, two ragged lengths (the last chunk
+# of 64 cut short); (b, l, h, d). Tolerances of tests/test_kernels.py:
+# y, C, n at 5e-4 absolute and 5e-3 relative, m at 1e-5; with q/k/v in
+# bf16, y is rounded to bf16 on output (2e-2 + 2e-2 |y|) while the state
+# is f32 on both sides from the same bf16 inputs (the f32 tolerances).
+MLSTM_CASES = [(1, 64, 2, 64), (2, 128, 4, 32), (2, 256, 4, 16),
+               (2, 256, 2, 128)]
+XLSTM_MLSTM = (4, 512, 4, 512)
+RAGGED_MLSTM = [(1, 100, 2, 128), (2, 300, 4, 512)]
+MLSTM_ATOL, MLSTM_RTOL, MLSTM_M_ATOL = 5e-4, 5e-3, 1e-5
+MLSTM_BF16_Y_TOL = 2e-2
+MLSTM_CHUNK = 64                # the kernel's chunk length
+XLSTM_BLOCKS = 7                # mLSTM blocks per group
 
 
 def card_line():
@@ -178,10 +196,198 @@ def ssm_bound(shape, itemsize, flops_per_s):
     return nbytes / HBM_BYTES_PER_S * 1e3, ops / flops_per_s * 1e3
 
 
+def mlstm_inputs(torch, shape, dtype, device, seed):
+    """q, k, v normal in `dtype`; the gates normal in f32, the forget
+    gate's shifted by +2, as the reference's tests draw them."""
+    b, l, h, d = shape
+    g = torch.Generator().manual_seed(seed)
+    q, k, v = (torch.randn(b, l, h, d, generator=g).to(device, dtype)
+               for _ in range(3))
+    ig = torch.randn(b, l, h, generator=g).to(device)
+    fg = (torch.randn(b, l, h, generator=g) + 2.0).to(device)
+    return [q, k, v, ig, fg]
+
+
+def mlstm_bound(shape, itemsize, flops_per_s):
+    """Least time (ms) of one mlstm_chunk call, as its two parts: q, k, v
+    (itemsize bytes) and the f32 gates read once and y (itemsize) and the
+    f32 final C, n, m written once over the HBM rate; and the chunkwise
+    function's products over the peak rate for the inputs' type: per
+    chunk of tn steps and (b, h), q.k^T and S.v over the live pairs
+    u <= t (2 D tn (tn + 1)), k^T v into C (2 tn D^2), and from the second
+    chunk on q.C_in and the carry (2 tn D^2 + D^2), plus n and q.n
+    (4 tn D). The first chunk starts from C = 0, so it needs no q.C_in."""
+    b, l, h, d = shape
+    nbytes = (itemsize * 4 * b * l * h * d
+              + 4 * (2 * b * l * h + b * h * (d * d + d + 1)))
+    ops = 0
+    for c, t0 in enumerate(range(0, l, MLSTM_CHUNK)):
+        tn = min(MLSTM_CHUNK, l - t0)
+        ops += 2 * d * tn * (tn + 1) + 2 * tn * d * d + 4 * tn * d
+        if c:
+            ops += 2 * tn * d * d + d * d
+    ops *= b * h
+    return nbytes / HBM_BYTES_PER_S * 1e3, ops / flops_per_s * 1e3
+
+
 def tree_to(tree, device):
     if isinstance(tree, dict):
         return {k: tree_to(v, device) for k, v in tree.items()}
     return tree.to(device)
+
+
+def one_group_card_vs_cpu(torch, model, p_gpu, prompt, kernels, label):
+    """Prefill `prompt` and 4 greedy decode steps with `model` on the card
+    from `p_gpu` and on the CPU from a copy; raises unless every step's
+    logits agree within ONE_GROUP_TOL. Returns the largest error in
+    prefill and in decode, and the launches of each of `kernels` in
+    prefill and in decode."""
+    cuda = torch.device("cuda")
+    p_cpu = tree_to(p_gpu, "cpu")
+    plen = prompt.shape[1]
+    counts, errs = [], []
+
+    def snap():
+        counts.append(tuple(k.launches for k in kernels))
+
+    def compare(lg, lc, what):
+        err = float((lg.cpu() - lc).abs().max())
+        errs.append(err)
+        if lg.shape != lc.shape or not bool(torch.isfinite(lg).all()) or \
+                not torch.allclose(lg.cpu(), lc, atol=ONE_GROUP_TOL,
+                                   rtol=ONE_GROUP_TOL):
+            raise RuntimeError(f"{label} {what}: card and CPU logits differ "
+                               f"by {err}")
+
+    with torch.inference_mode():
+        snap()
+        lg, cg = model.prefill(p_gpu, {"tokens": prompt.to(cuda)},
+                               max_len=plen + 4)
+        torch.cuda.synchronize()
+        snap()
+        lc, cc = model.prefill(p_cpu, {"tokens": prompt}, max_len=plen + 4)
+        compare(lg, lc, "prefill")
+        tok = lc.argmax(-1)
+        for step in range(4):
+            lg, cg = model.decode_step(p_gpu, tok.to(cuda), cg)
+            lc, cc = model.decode_step(p_cpu, tok, cc)
+            compare(lg, lc, f"decode step {step}")
+            tok = lc.argmax(-1)
+        torch.cuda.synchronize()
+        snap()
+    pre = tuple(b - a for a, b in zip(counts[0], counts[1]))
+    dec = tuple(b - a for a, b in zip(counts[1], counts[2]))
+    return errs[0], max(errs[1:]), pre, dec
+
+
+def trace_generate(torch, engine, batch, label, card):
+    """The serving path traced twice under torch.profiler: prefill alone
+    (steps=1), then prefill and 7 decode steps; the difference, over 7,
+    is what one decode step costs."""
+    from torch.profiler import ProfilerActivity, profile
+    traced = {}
+    for steps in (1, 8):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            res = engine.generate(batch, steps=steps)
+            torch.cuda.synchronize()
+            traced_s = time.perf_counter() - t0
+        traced[steps] = (traced_s,) + print_profile(
+            prof, f"[{card}] traced {label} generate(4 x {GEN_PROMPT}, "
+            f"steps={steps}) (prefill {res.prefill_seconds:.4f} s, decode "
+            f"{res.decode_seconds:.4f} s)", traced_s, 12)
+    per = [(b - a) / 7 for a, b in zip(traced[1], traced[8])]
+    print(f"[{card}] traced {label} decode step: wall {per[0] * 1e3:.3f} "
+          f"ms, device busy {per[1] * 1e3:.3f} ms ({per[1] / per[0]:.2%}), "
+          f"{per[2]:.0f} device events")
+
+
+def drive_generate(torch, cfg, kernels, per_prefill, card):
+    """The serving path of `cfg` at full width and depth:
+    `ServingEngine(build_model(cfg), device="cuda").generate(make_batch(
+    cfg, 4, 512), steps=32)` with random weights drawn on the card, every
+    counter of `kernels` (name -> wrapper) set to 0 just before and read
+    just after. Raises unless the run launched `per_prefill` (one
+    prefill), the tokens extend the prompt within the vocab, a second
+    greedy run gives the same tokens, and one more prefill and decode step
+    launch `per_prefill` and nothing and give finite logits of the padded
+    vocab's shape with the padding masked. Returns (engine, batch, the
+    launches of the first run)."""
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.models import build_model
+    from repro_torch.models.decoder import padded_vocab
+    from repro_torch.serving.engine import ServingEngine
+    cuda = torch.device("cuda")
+
+    def counts():
+        return {name: k.launches for name, k in kernels.items()}
+
+    held = torch.cuda.memory_allocated()   # by earlier phases
+    t0 = time.perf_counter()
+    engine = ServingEngine(build_model(cfg), device=cuda)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in leaves(engine.params))
+    batch = make_batch(cfg, GEN_BATCH, GEN_PROMPT, seed=0)
+    torch.cuda.reset_peak_memory_stats()
+    for k in kernels.values():
+        k.launches = 0
+    gen = engine.generate(batch, steps=GEN_STEPS)
+    launched = counts()
+    peak_gb = (torch.cuda.max_memory_allocated() - held) / 1e9
+    toks = gen.tokens
+    print(f"{cfg.name}: {n_params / 1e9:.3f} B parameters ({cfg.dtype}) "
+          f"drawn on the card in {init_s:.2f} s; generate("
+          f"{tuple(batch['tokens'].shape)}, steps={GEN_STEPS}) -> tokens "
+          f"{tuple(toks.shape)}; launches {launched}")
+    want_shape = (GEN_BATCH, GEN_PROMPT + GEN_STEPS)
+    if tuple(toks.shape) != want_shape or int(toks.min()) < 0 or \
+            int(toks.max()) >= cfg.vocab_size or not torch.equal(
+                toks[:, :GEN_PROMPT].cpu(), batch["tokens"]):
+        raise RuntimeError(f"{cfg.name} generate: bad tokens "
+                           f"{tuple(toks.shape)}")
+    if launched != per_prefill:
+        raise RuntimeError(f"{cfg.name} generate: launches {launched}, "
+                           f"expected {per_prefill}")
+    gen2 = engine.generate(batch, steps=GEN_STEPS)
+    if not torch.equal(gen2.tokens, toks):
+        raise RuntimeError(f"{cfg.name} generate: a second greedy run "
+                           f"returned other tokens")
+    with torch.inference_mode():
+        c0 = counts()
+        lg, cache = engine.model.prefill(
+            engine.params, {"tokens": batch["tokens"].to(cuda)},
+            max_len=GEN_PROMPT + 1)
+        c1 = counts()
+        lg2, _ = engine.model.decode_step(engine.params, lg.argmax(-1),
+                                          cache)
+        c2 = counts()
+    pre = {name: c1[name] - c0[name] for name in kernels}
+    dec = {name: c2[name] - c1[name] for name in kernels}
+    print(f"{cfg.name}: launches per prefill {pre}, per decode step {dec}")
+    if pre != per_prefill or any(dec.values()):
+        raise RuntimeError(f"{cfg.name}: launches per prefill {pre}, per "
+                           f"decode step {dec}")
+    vpad = padded_vocab(cfg.vocab_size)
+    for what, logits in (("prefill", lg), ("decode", lg2)):
+        pad = logits[:, cfg.vocab_size:]
+        if tuple(logits.shape) != (GEN_BATCH, vpad) or \
+                not bool(torch.isfinite(logits).all()) or \
+                (pad.numel() and float(pad.max()) > -1e29):
+            raise RuntimeError(f"{cfg.name} {what} logits: shape "
+                               f"{tuple(logits.shape)}, not finite or the "
+                               f"vocab padding not masked")
+    del cache
+    for label, g in (("run 1", gen), ("run 2", gen2)):
+        print(f"[{card}] {cfg.name} generate {label}: prefill "
+              f"{g.prefill_seconds:.4f} s, decode "
+              f"{g.decode_seconds / (GEN_STEPS - 1) * 1e3:.3f} ms per "
+              f"step ({GEN_STEPS - 1} steps, {g.decode_seconds:.3f} s)")
+    print(f"[{card}] {cfg.name} generate: peak device memory "
+          f"{peak_gb:.2f} GB (torch.cuda.max_memory_allocated less the "
+          f"{held / 1e9:.2f} GB that earlier phases hold)")
+    return engine, batch, launched
 
 
 def event_ms(torch, fn, iters, warmup=20):
@@ -273,11 +479,12 @@ def main():
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_plain)
     from repro_torch.kernels.lstm_cell import lstm_cell, lstm_cell_plain
+    from repro_torch.kernels.mlstm_chunk import mlstm_chunk, mlstm_chunk_plain
     from repro_torch.kernels.ssm_scan import ssm_scan, ssm_scan_plain
     from repro_torch.launch import serve
     from repro_torch.models import build_model
     from repro_torch.models.lstm import ICULSTM
-    from repro_torch.serving.engine import ClassifierEngine, ServingEngine
+    from repro_torch.serving.engine import ClassifierEngine
 
     torch.backends.cuda.matmul.allow_tf32 = False   # plain f32 matmuls
     cuda = torch.device("cuda")
@@ -290,7 +497,8 @@ def main():
 
     # 2. build
     t0 = time.perf_counter()
-    libs = build.build("lstm_cell", "flash_attention", "ssm_scan")
+    libs = build.build("lstm_cell", "flash_attention", "ssm_scan",
+                       "mlstm_chunk")
     print(f"build: {len(libs)} kernel(s) in "
           f"{time.perf_counter() - t0:.2f} s")
 
@@ -350,6 +558,36 @@ def main():
                                    f"plain version disagree")
             ssm_err[(shape, name)] = max(y_err, h_err)
 
+    mlstm_err = {}
+    for k, shape in enumerate(MLSTM_CASES + [XLSTM_MLSTM] + RAGGED_MLSTM):
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).removeprefix("torch.")
+            args = mlstm_inputs(torch, shape, dtype, cuda, seed=300 + k)
+            before = mlstm_chunk.launches
+            y, state = mlstm_chunk(*args)
+            launched = mlstm_chunk.launches - before
+            yp, state_p = mlstm_chunk_plain(*args)
+            torch.cuda.synchronize()
+            y_tol = ((MLSTM_ATOL, MLSTM_RTOL) if dtype == torch.float32
+                     else (MLSTM_BF16_Y_TOL, MLSTM_BF16_Y_TOL))
+            pairs = {"y": (y.float(), yp.float(), y_tol)}
+            for part, a, b in zip("Cnm", state, state_p):
+                pairs[part] = (a, b, (MLSTM_M_ATOL, 0.0) if part == "m"
+                               else (MLSTM_ATOL, MLSTM_RTOL))
+            errs = {part: float((a - b).abs().max())
+                    for part, (a, b, _) in pairs.items()}
+            print(f"mlstm_chunk {shape} {name}: max |kernel - plain| "
+                  + ", ".join(f"{part} {e:.3e} (atol {pairs[part][2][0]}, "
+                              f"rtol {pairs[part][2][1]})"
+                              for part, e in errs.items())
+                  + f"; launches {launched}")
+            if launched != 1 or y.dtype != dtype or not all(
+                    torch.allclose(a, b, atol=tol[0], rtol=tol[1])
+                    for a, b, tol in pairs.values()):
+                raise RuntimeError(f"mlstm_chunk {shape} {name}: kernel and "
+                                   f"plain version disagree")
+            mlstm_err[(shape, name)] = max(errs.values())
+
     # 4. models on the card vs the same models on the CPU
     for cfg in ICU_WORKLOADS:
         gen_seed = 17
@@ -381,50 +619,35 @@ def main():
                                num_groups=1, dtype="float32")
     zmodel = build_model(zcfg)
     zp_gpu = zmodel.init(torch.Generator(cuda).manual_seed(1), device=cuda)
-    zp_cpu = tree_to(zp_gpu, "cpu")
-    prompt = make_batch(zcfg, 1, ZAMBA_PROMPT, seed=1)["tokens"]
-    counts = []
-    errs = []
-
-    def snap():
-        counts.append((flash_attention.launches, ssm_scan.launches))
-
-    def compare(lg, lc, what):
-        err = float((lg.cpu() - lc).abs().max())
-        errs.append(err)
-        if lg.shape != lc.shape or not bool(torch.isfinite(lg).all()) or \
-                not torch.allclose(lg.cpu(), lc, atol=ZAMBA_MODEL_TOL,
-                                   rtol=ZAMBA_MODEL_TOL):
-            raise RuntimeError(f"zamba2 one group {what}: card and CPU "
-                               f"logits differ by {err}")
-
-    with torch.inference_mode():
-        snap()
-        lg, cg = zmodel.prefill(zp_gpu, {"tokens": prompt.to(cuda)},
-                                max_len=ZAMBA_PROMPT + 4)
-        torch.cuda.synchronize()
-        snap()
-        lc, cc = zmodel.prefill(zp_cpu, {"tokens": prompt},
-                                max_len=ZAMBA_PROMPT + 4)
-        compare(lg, lc, "prefill")
-        tok = lc.argmax(-1)
-        for step in range(4):
-            lg, cg = zmodel.decode_step(zp_gpu, tok.to(cuda), cg)
-            lc, cc = zmodel.decode_step(zp_cpu, tok, cc)
-            compare(lg, lc, f"decode step {step}")
-            tok = lc.argmax(-1)
-        torch.cuda.synchronize()
-        snap()
-    pre = tuple(b - a for a, b in zip(counts[0], counts[1]))
-    dec = tuple(b - a for a, b in zip(counts[1], counts[2]))
-    print(f"zamba2 full width, 1 group, float32, prompt (1, {ZAMBA_PROMPT}):"
-          f" max |cuda - cpu| logits prefill {errs[0]:.3e}, 4 decode steps "
-          f"{max(errs[1:]):.3e} (atol = rtol = {ZAMBA_MODEL_TOL}); "
+    prompt = make_batch(zcfg, 1, GEN_PROMPT, seed=1)["tokens"]
+    e_pre, e_dec, pre, dec = one_group_card_vs_cpu(
+        torch, zmodel, zp_gpu, prompt, (flash_attention, ssm_scan),
+        "zamba2 one group")
+    print(f"zamba2 full width, 1 group, float32, prompt (1, {GEN_PROMPT}):"
+          f" max |cuda - cpu| logits prefill {e_pre:.3e}, 4 decode steps "
+          f"{e_dec:.3e} (atol = rtol = {ONE_GROUP_TOL}); "
           f"(flash, ssm) launches prefill {pre}, decode {dec}")
     if pre != (1, 5) or dec != (0, 0):
         raise RuntimeError(f"zamba2 one group: launches prefill {pre}, "
                            f"decode {dec}; expected (1, 5) and (0, 0)")
-    del zp_gpu, zp_cpu, cg, cc
+    del zp_gpu
+
+    # xlstm-350m at full width, one group (7 mLSTM + 1 sLSTM), float32
+    xcfg = dataclasses.replace(get_config("xlstm-350m"), num_layers=8,
+                               num_groups=1, dtype="float32")
+    xmodel = build_model(xcfg)
+    xp_gpu = xmodel.init(torch.Generator(cuda).manual_seed(1), device=cuda)
+    prompt = make_batch(xcfg, 1, GEN_PROMPT, seed=1)["tokens"]
+    e_pre, e_dec, pre, dec = one_group_card_vs_cpu(
+        torch, xmodel, xp_gpu, prompt, (mlstm_chunk,), "xlstm one group")
+    print(f"xlstm-350m full width, 1 group, float32, prompt (1, "
+          f"{GEN_PROMPT}): max |cuda - cpu| logits prefill {e_pre:.3e}, 4 "
+          f"decode steps {e_dec:.3e} (atol = rtol = {ONE_GROUP_TOL}); "
+          f"mlstm_chunk launches prefill {pre[0]}, decode {dec[0]}")
+    if pre != (XLSTM_BLOCKS,) or dec != (0,):
+        raise RuntimeError(f"xlstm one group: launches prefill {pre}, "
+                           f"decode {dec}; expected 7 and 0")
+    del xp_gpu
 
     # 5. device search: CUDA vs CPU on integer instances
     rng = np.random.default_rng(0)
@@ -478,59 +701,24 @@ def main():
     if launches < 48 * SERVE_PATIENTS:
         raise RuntimeError(f"only {launches} lstm_cell launches")
 
-    # 6b. the zamba2 serving path, with its counters read around it alone
+    # 6b, 6c. the LLM serving paths, each with every counter read around
+    # it alone
+    kernels = {"lstm_cell": lstm_cell, "flash_attention": flash_attention,
+               "ssm_scan": ssm_scan, "mlstm_chunk": mlstm_chunk}
     zcfg = get_config("zamba2-2.7b")
-    t0 = time.perf_counter()
-    zengine = ServingEngine(build_model(zcfg), device=cuda)
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
-    n_params = sum(t.numel() for t in leaves(zengine.params))
-    zbatch = make_batch(zcfg, ZAMBA_BATCH, ZAMBA_PROMPT, seed=0)
-    torch.cuda.reset_peak_memory_stats()
-    flash_attention.launches = 0
-    ssm_scan.launches = 0
-    gen = zengine.generate(zbatch, steps=ZAMBA_STEPS)
-    flash_launches = flash_attention.launches
-    ssm_launches = ssm_scan.launches
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    toks = gen.tokens
-    print(f"zamba2-2.7b: {n_params / 1e9:.3f} B parameters (bf16) drawn on "
-          f"the card in {init_s:.2f} s; generate({tuple(zbatch['tokens'].shape)}"
-          f", steps={ZAMBA_STEPS}) -> tokens {tuple(toks.shape)}; "
-          f"flash_attention launches {flash_launches}, ssm_scan launches "
-          f"{ssm_launches}")
-    want_shape = (ZAMBA_BATCH, ZAMBA_PROMPT + ZAMBA_STEPS)
-    if tuple(toks.shape) != want_shape or int(toks.min()) < 0 or \
-            int(toks.max()) >= zcfg.vocab_size or not torch.equal(
-                toks[:, :ZAMBA_PROMPT].cpu(), zbatch["tokens"]):
-        raise RuntimeError(f"zamba2 generate: bad tokens {tuple(toks.shape)}")
-    if (flash_launches, ssm_launches) != (zcfg.num_groups,
-                                          5 * zcfg.num_groups):
-        raise RuntimeError(f"zamba2 generate: {flash_launches} flash and "
-                           f"{ssm_launches} ssm launches, expected 9 and 45")
-    gen2 = zengine.generate(zbatch, steps=ZAMBA_STEPS)
-    if not torch.equal(gen2.tokens, toks):
-        raise RuntimeError("zamba2 generate: a second greedy run returned "
-                           "other tokens")
-    with torch.inference_mode():
-        zt = zbatch["tokens"].to(cuda)
-        zl, zc = zengine.model.prefill(zengine.params, {"tokens": zt},
-                                       max_len=ZAMBA_PROMPT + 1)
-        zl2, _ = zengine.model.decode_step(zengine.params, zl.argmax(-1),
-                                           zc)
-    for what, zlog in (("prefill", zl), ("decode", zl2)):
-        if tuple(zlog.shape) != (ZAMBA_BATCH, zcfg.vocab_size) or \
-                not bool(torch.isfinite(zlog).all()):
-            raise RuntimeError(f"zamba2 {what} logits: shape "
-                               f"{tuple(zlog.shape)} or not finite")
-    del zc
-    for label, g in (("run 1", gen), ("run 2", gen2)):
-        print(f"[{card}] zamba2-2.7b generate {label}: prefill "
-              f"{g.prefill_seconds:.4f} s, decode "
-              f"{g.decode_seconds / (ZAMBA_STEPS - 1) * 1e3:.3f} ms per "
-              f"step ({ZAMBA_STEPS - 1} steps, {g.decode_seconds:.3f} s)")
-    print(f"[{card}] zamba2-2.7b generate: peak device memory "
-          f"(torch.cuda.max_memory_allocated) {peak_gb:.2f} GB")
+    zengine, zbatch, zl = drive_generate(
+        torch, zcfg, kernels, {"lstm_cell": 0,
+                               "flash_attention": zcfg.num_groups,
+                               "ssm_scan": 5 * zcfg.num_groups,
+                               "mlstm_chunk": 0}, card)
+    flash_launches, ssm_launches = zl["flash_attention"], zl["ssm_scan"]
+    xcfg = get_config("xlstm-350m")
+    xengine, xbatch, xl = drive_generate(
+        torch, xcfg, kernels, {"lstm_cell": 0, "flash_attention": 0,
+                               "ssm_scan": 0,
+                               "mlstm_chunk": XLSTM_BLOCKS * xcfg.num_groups},
+        card)
+    mlstm_launches = xl["mlstm_chunk"]
 
     # main-path launches per (B, I, H): calibrate runs two inferences of
     # CALIBRATE_RECORDS per workload, execution one of EXECUTE_RECORDS
@@ -603,6 +791,20 @@ def main():
           f"{ssm_bound(ZAMBA_SSM, 2, F32_FLOPS)[1]:.6f} ms), main-path "
           f"launches {ssm_launches}")
 
+    args = mlstm_inputs(torch, XLSTM_MLSTM, torch.bfloat16, cuda, seed=202)
+    mt = {"ms": event_ms(torch, lambda: mlstm_chunk(*args), 20, warmup=3),
+          "plain_ms": event_ms(torch, lambda: mlstm_chunk_plain(*args), 5,
+                               warmup=2),
+          "library_ms": None}
+    mt["bytes_ms"], mt["ops_ms"] = mlstm_bound(XLSTM_MLSTM, 2, BF16_FLOPS)
+    print(f"[{card}] mlstm_chunk {XLSTM_MLSTM} q/k/v bf16: kernel "
+          f"{mt['ms']:.5f} ms, plain {mt['plain_ms']:.5f} ms, library none "
+          f"(no single PyTorch call computes it), bound bytes "
+          f"{mt['bytes_ms']:.6f} ms / operations {mt['ops_ms']:.6f} ms "
+          f"(at the f32 CUDA-core rate the operations would take "
+          f"{mlstm_bound(XLSTM_MLSTM, 2, F32_FLOPS)[1]:.6f} ms), main-path "
+          f"launches {mlstm_launches}")
+
     def mean_over_mix(key):
         return sum(per_shape[s][key] * c for s, c in mix.items()) \
             / sum(mix.values())
@@ -648,25 +850,8 @@ def main():
         traced_s = time.perf_counter() - t0
     print_profile(prof, f"[{card}] traced serve.run(patients="
                   f"{SERVE_PATIENTS})", traced_s, 8)
-    # the zamba2 path traced twice: prefill alone (steps=1), then prefill
-    # and 7 decode steps; the difference is what the decode steps cost
-    traced = {}
-    for steps in (1, 8):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            res = zengine.generate(zbatch, steps=steps)
-            torch.cuda.synchronize()
-            traced_s = time.perf_counter() - t0
-        traced[steps] = (traced_s,) + print_profile(
-            prof, f"[{card}] traced zamba2-2.7b generate(4 x "
-            f"{ZAMBA_PROMPT}, steps={steps}) (prefill "
-            f"{res.prefill_seconds:.4f} s, decode {res.decode_seconds:.4f} "
-            f"s)", traced_s, 12)
-    per = [(b - a) / 7 for a, b in zip(traced[1], traced[8])]
-    print(f"[{card}] traced zamba2-2.7b decode step: wall {per[0] * 1e3:.3f}"
-          f" ms, device busy {per[1] * 1e3:.3f} ms ({per[1] / per[0]:.2%}), "
-          f"{per[2]:.0f} device events")
+    trace_generate(torch, zengine, zbatch, "zamba2-2.7b", card)
+    trace_generate(torch, xengine, xbatch, "xlstm-350m", card)
 
     print(json.dumps({"kernels": [{
         "name": "lstm_cell", "route": "cuda",
@@ -696,6 +881,16 @@ def main():
         "ms": st["ms"], "plain_ms": st["plain_ms"],
         "bound_ms": max(st["bytes_ms"], st["ops_ms"]),
         "bound_by": "bytes" if st["bytes_ms"] >= st["ops_ms"]
+        else "operations",
+        "library_ms": None}, {
+        "name": "mlstm_chunk", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/mlstm_chunk.cu",
+        "replaces": "src/repro/kernels/mlstm_chunk.py:37",
+        "launches": mlstm_launches,
+        "max_abs_err": mlstm_err[(XLSTM_MLSTM, "bfloat16")],
+        "ms": mt["ms"], "plain_ms": mt["plain_ms"],
+        "bound_ms": max(mt["bytes_ms"], mt["ops_ms"]),
+        "bound_by": "bytes" if mt["bytes_ms"] >= mt["ops_ms"]
         else "operations",
         "library_ms": None}]}))
     # the one card this run used, whatever else the host shows

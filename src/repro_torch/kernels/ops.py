@@ -10,10 +10,11 @@ from __future__ import annotations
 from repro_torch.kernels import ref
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.lstm_cell import lstm_cell
+from repro_torch.kernels.mlstm_chunk import mlstm_chunk
 from repro_torch.kernels.ssm_scan import ssm_scan
 
-__all__ = ["attention", "lstm_step", "ssm", "flash_attention", "lstm_cell",
-           "ssm_scan"]
+__all__ = ["attention", "lstm_step", "ssm", "mlstm", "flash_attention",
+           "lstm_cell", "ssm_scan", "mlstm_chunk"]
 
 
 def attention(q, k, v, *, causal=True, window=None, softcap=None,
@@ -38,3 +39,13 @@ def ssm(x, dt, a, b, c, d, *, chunk=256, block_h=8):
     if x.device.type != "cpu":
         return ssm_scan(x, dt, a, b, c, d, chunk=chunk, block_h=block_h)
     return ref.ssm_scan_reference(x, dt, a, b, c, d)
+
+
+def mlstm(q, k, v, i_gate, f_gate, *, chunk=64, block_h=4):
+    """Returns (y, (C, n, m) final state)."""
+    if q.device.type != "cpu":
+        return mlstm_chunk(q, k, v, i_gate, f_gate, chunk=chunk,
+                           block_h=block_h)
+    if q.shape[1] >= 256:   # chunkwise: O(L/chunk) state, as the reference
+        return ref.mlstm_chunk_torch(q, k, v, i_gate, f_gate, chunk=256)
+    return ref.mlstm_chunk_reference(q, k, v, i_gate, f_gate)

@@ -174,3 +174,118 @@ def ssm_scan_reference(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     y = torch.stack(ys, dim=1) if ys else xf.new_zeros((bs, 0, h, p))
     y = y + xf * d.to(f32)[None, None, :, None]
     return y.to(x.dtype), state
+
+
+def mlstm_chunk_torch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      i_gate: torch.Tensor, f_gate: torch.Tensor, *,
+                      chunk: int = 256
+                      ) -> tuple[torch.Tensor,
+                                 tuple[torch.Tensor, torch.Tensor,
+                                       torch.Tensor]]:
+    """Chunkwise-parallel mLSTM (the reference's `mlstm_chunk_jnp`): the
+    re-association of `mlstm_chunk_reference` that the Pallas kernel
+    computes, one chunk at a time from a zero state,
+
+        b_t  = cumsum(logsigmoid(f))          per-chunk forget log-decay
+        g_u  = i_u - b_u
+        cm_t = max(m_in, cummax_{u<=t} g_u)   running stabiliser
+        m_t  = b_t + cm_t
+        w_tu = exp(g_u - cm_t) [u<=t]         intra-chunk weights
+        h_t  = (S_tu v_u + exp(m_in - cm_t) q_t C_in)
+               / max(|q_t n_t|, exp(-m_t))
+
+    with S = (q kᵀ / sqrt(D)) ∘ w. A length the chunk does not divide
+    takes the sequential oracle, as the reference does.
+
+    Returns (y (B, L, H, D) in q.dtype, (C, n, m) final state, float32).
+    """
+    bsz, l, h, d = q.shape
+    t = min(chunk, l)
+    if t == 0 or l % t:
+        return mlstm_chunk_reference(q, k, v, i_gate, f_gate)
+    f32 = torch.float32
+    scale = 1.0 / math.sqrt(d)
+    causal = torch.tril(torch.ones((t, t), dtype=torch.bool,
+                                   device=q.device))
+    c_in = torch.zeros((bsz, h, d, d), dtype=f32, device=q.device)
+    n_in = torch.zeros((bsz, h, d), dtype=f32, device=q.device)
+    m_in = torch.full((bsz, h), NEG_INF, dtype=f32, device=q.device)
+    ys = []
+    for c0 in range(0, l, t):
+        qc, kc, vc, ic, fc = (x[:, c0:c0 + t].to(f32)
+                              for x in (q, k, v, i_gate, f_gate))
+        kc = kc * scale
+        b = torch.cumsum(torch.nn.functional.logsigmoid(fc), dim=1)
+        g = ic - b                                             # (B, T, H)
+        cm = torch.maximum(torch.cummax(g, dim=1).values, m_in[:, None])
+        m_t = b + cm
+        w = torch.exp(g[:, None, :, :] - cm[:, :, None, :])   # (B, T, T, H)
+        w = torch.where(causal[None, :, :, None], w, 0.0)
+        qk = torch.einsum("bthd,buhd->btuh", qc, kc)
+        num = torch.einsum("btuh,buhd->bthd", qk * w, vc)
+        inter = torch.exp(m_in[:, None] - cm)                  # (B, T, H)
+        num = num + torch.einsum("bthd,bhde->bthe", qc,
+                                 c_in) * inter[..., None]
+        n_vec = (torch.einsum("btuh,buhd->bthd", w, kc)
+                 + n_in[:, None] * inter[..., None])
+        den = torch.maximum(
+            torch.abs(torch.einsum("bthd,bthd->bth", qc, n_vec)),
+            torch.exp(-m_t))
+        ys.append(num / den[..., None])
+
+        cm_l, b_l, m_l = cm[:, -1], b[:, -1], m_t[:, -1]       # (B, H)
+        w_out = torch.exp(g - cm_l[:, None])                   # (B, T, H)
+        carry = torch.exp(b_l + m_in - m_l)                    # (B, H)
+        kw = kc * w_out[..., None]
+        c_in = (c_in * carry[..., None, None]
+                + torch.einsum("bthd,bthe->bhde", kw, vc))
+        n_in = n_in * carry[..., None] + kw.sum(dim=1)
+        m_in = m_l
+    y = torch.cat(ys, dim=1)
+    return y.to(q.dtype), (c_in, n_in, m_in)
+
+
+def mlstm_chunk_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          i_gate: torch.Tensor, f_gate: torch.Tensor,
+                          c0: Optional[torch.Tensor] = None,
+                          n0: Optional[torch.Tensor] = None,
+                          m0: Optional[torch.Tensor] = None
+                          ) -> tuple[torch.Tensor,
+                                     tuple[torch.Tensor, torch.Tensor,
+                                           torch.Tensor]]:
+    """Sequential mLSTM (xLSTM matrix-memory) oracle, stabilised gating
+    (arXiv:2405.04517 eq. 19-27).
+
+    q, k, v: (B, L, H, D); i_gate, f_gate: (B, L, H) pre-activation.
+    State: C (B, H, D, D) matrix memory, n (B, H, D) normaliser, m (B, H)
+    stabiliser; c0/n0/m0 default to 0, 0 and -1e30. Returns (y (B, L, H,
+    D) in q.dtype, (C, n, m) final state, float32).
+    """
+    bs, l, h, d = q.shape
+    f32 = torch.float32
+    qf, kf, vf = q.to(f32), k.to(f32), v.to(f32)
+    ig, fg = i_gate.to(f32), f_gate.to(f32)
+    scale = 1.0 / math.sqrt(d)
+    c = (torch.zeros((bs, h, d, d), dtype=f32, device=q.device)
+         if c0 is None else c0.to(f32))
+    n = (torch.zeros((bs, h, d), dtype=f32, device=q.device)
+         if n0 is None else n0.to(f32))
+    m = (torch.full((bs, h), NEG_INF, dtype=f32, device=q.device)
+         if m0 is None else m0.to(f32))
+    ys = []
+    for t in range(l):
+        qt, kt, vt = qf[:, t], kf[:, t], vf[:, t]
+        log_f = torch.nn.functional.logsigmoid(fg[:, t])      # (B, H)
+        m_new = torch.maximum(log_f + m, ig[:, t])
+        fdec = torch.exp(log_f + m - m_new)
+        iamp = torch.exp(ig[:, t] - m_new)
+        c = c * fdec[..., None, None] + iamp[..., None, None] * torch.einsum(
+            "bhd,bhe->bhde", kt * scale, vt)
+        n = n * fdec[..., None] + iamp[..., None] * kt * scale
+        num = torch.einsum("bhde,bhd->bhe", c, qt)
+        den = torch.maximum(torch.abs(torch.einsum("bhd,bhd->bh", n, qt)),
+                            torch.exp(-m_new))
+        ys.append(num / den[..., None])
+        m = m_new
+    y = torch.stack(ys, dim=1) if ys else qf.new_zeros((bs, 0, h, d))
+    return y.to(q.dtype), (c, n, m)

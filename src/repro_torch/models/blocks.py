@@ -6,18 +6,21 @@ Uniform interface, as in the reference:
 
 mode in {"prefill", "decode"} (and "train" for a forward without caches).
 ctx carries the config, positions, the decode position and the shared
-weights. This slice ports MAMBA and SHARED_ATTN (zamba2); every other kind
-raises NotImplementedError naming its ROADMAP item. The reference's
-sharding constraints have no counterpart on one card and are left out.
+weights. The port has MAMBA and SHARED_ATTN (zamba2), MLSTM and SLSTM
+(xlstm-350m); every other kind raises NotImplementedError naming its
+ROADMAP item. The reference's sharding constraints have no counterpart on
+one card and are left out.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs import base
 from repro_torch.configs.base import ModelConfig
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, ref
 from repro_torch.models import attention, common
 
 LORA_RANK = 64  # zamba2 per-block adapters on the shared attention weights
@@ -28,8 +31,6 @@ _NOT_PORTED = {
     base.ATTN_GLOBAL: "queue 1 item 9: dense attention blocks",
     base.MOE: "queue 1 item 9: the MoE block (_moe_ffn)",
     base.CROSS: "queue 1 item 9: cross attention (llama-vision)",
-    base.SLSTM: "the next slice: xlstm-350m (_apply_slstm)",
-    base.MLSTM: "the next slice: xlstm-350m (_apply_mlstm, mlstm_chunk)",
 }
 
 
@@ -154,14 +155,176 @@ def _apply_shared_attn(lora_p, x, ctx, cache, mode):
     return x, ({"attn": cache_a} if mode == "prefill" else None), {}
 
 
+# ====================================================================== xLSTM
+def _init_mlstm(generator: torch.Generator, cfg: ModelConfig) -> dict:
+    dtype = common.torch_dtype(cfg.dtype)
+    dev = generator.device
+    d = cfg.d_model
+    d_inner = cfg.ssm_expand * d
+    h = cfg.ssm_num_heads
+    f32 = torch.float32
+    return {
+        "norm": common.norm_init(d, dtype, dev),
+        "w_up": common.dense_init(generator, d, 2 * d_inner, dtype=dtype),
+        "conv": common.causal_conv_init(generator, d_inner,
+                                        cfg.ssm_conv_width, dtype=dtype),
+        "wq": common.dense_init(generator, d_inner, d_inner, dtype=dtype),
+        "wk": common.dense_init(generator, d_inner, d_inner, dtype=dtype),
+        "wv": common.dense_init(generator, d_inner, d_inner, dtype=dtype),
+        "w_gates": common.dense_init(generator, d_inner, 2 * h, dtype=f32),
+        "gate_bias": torch.cat([torch.zeros((h,), dtype=f32, device=dev),
+                                torch.full((h,), 3.0, dtype=f32,
+                                           device=dev)]),
+        "norm_out": common.norm_init(d_inner, dtype, dev),
+        "w_down": common.dense_init(generator, d_inner, d, dtype=dtype),
+    }
+
+
+def _apply_mlstm(p, x, ctx, cache, mode):
+    cfg = ctx["cfg"]
+    d_inner = cfg.ssm_expand * cfg.d_model
+    h = cfg.ssm_num_heads
+    ph = d_inner // h
+    bsz, l, _ = x.shape
+    f32 = torch.float32
+
+    hid = common.rms_norm(x, p["norm"], cfg.norm_eps)
+    up = hid @ p["w_up"]
+    xin, z = up[..., :d_inner], up[..., d_inner:]
+    conv_state = cache["conv"] if mode == "decode" else None
+    cx, conv_state = common.causal_conv_apply(p["conv"], xin, conv_state)
+    cx = F.silu(cx)
+    q = (cx @ p["wq"]).reshape(bsz, l, h, ph)
+    k = (cx @ p["wk"]).reshape(bsz, l, h, ph)
+    v = (xin @ p["wv"]).reshape(bsz, l, h, ph)
+    gates = cx.to(f32) @ p["w_gates"] + p["gate_bias"]
+    ig, fg = gates[..., :h], gates[..., h:]
+
+    if mode == "decode":
+        # one step of the sequential recurrence from the cached state,
+        # plain torch as the reference leaves it
+        y, (c, nvec, m) = ref.mlstm_chunk_reference(
+            q, k, v, ig, fg, c0=cache["c"], n0=cache["n"], m0=cache["m"])
+        y = y.reshape(bsz, 1, d_inner)
+        new_cache = {"conv": conv_state, "c": c, "n": nvec, "m": m}
+    else:
+        y, (c, nvec, m) = ops.mlstm(q, k, v, ig.contiguous(), fg.contiguous(),
+                                    chunk=min(cfg.ssm_chunk, 64))
+        y = y.reshape(bsz, l, d_inner)
+        new_cache = ({"conv": conv_state, "c": c, "n": nvec, "m": m}
+                     if mode == "prefill" else None)
+
+    y = y * F.silu(z)
+    y = common.rms_norm(y, p["norm_out"], cfg.norm_eps)
+    return x + y @ p["w_down"], new_cache, {}
+
+
+def _init_slstm(generator: torch.Generator, cfg: ModelConfig) -> dict:
+    dtype = common.torch_dtype(cfg.dtype)
+    dev = generator.device
+    d = cfg.d_model
+    h = cfg.num_heads
+    ph = d // h
+    f32 = torch.float32
+    r_gates = torch.randn((4, h, ph, ph), generator=generator, dtype=f32,
+                          device=dev) / math.sqrt(ph)
+    return {
+        "norm": common.norm_init(d, dtype, dev),
+        "conv": common.causal_conv_init(generator, d, cfg.ssm_conv_width,
+                                        dtype=dtype),
+        "w_gates": common.dense_init(generator, d, 4 * d, dtype=dtype),
+        "r_gates": r_gates.to(dtype),
+        "gate_bias": torch.cat([torch.zeros((2 * d,), dtype=f32, device=dev),
+                                torch.full((d,), 3.0, dtype=f32, device=dev),
+                                torch.zeros((d,), dtype=f32, device=dev)]),
+        "norm_out": common.norm_init(d, dtype, dev),
+        "w_up": common.dense_init(generator, d, 2 * cfg.d_model,
+                                  dtype=dtype),
+        "w_down": common.dense_init(generator, cfg.d_model, d, dtype=dtype),
+    }
+
+
+def _slstm_step(p, cfg, xg_t, state):
+    """xg_t: (B, 4d) input gate preactivations; state: (h, c, n, m).
+    Gate order z, i, f, o."""
+    h_prev, c_prev, n_prev, m_prev = state
+    d = cfg.d_model
+    nh = cfg.num_heads
+    ph = d // nh
+    bsz = xg_t.shape[0]
+    hp = h_prev.reshape(bsz, nh, ph)
+    rec = torch.einsum("bhp,ghpq->bghq", hp,
+                       p["r_gates"].to(torch.float32)).reshape(bsz, 4 * d)
+    g = xg_t + rec + p["gate_bias"]
+    zt = torch.tanh(g[..., 0:d])
+    it = g[..., d:2 * d]
+    ft = g[..., 2 * d:3 * d]
+    ot = torch.sigmoid(g[..., 3 * d:])
+    log_f = F.logsigmoid(ft)
+    m_new = torch.maximum(log_f + m_prev, it)
+    i_act = torch.exp(it - m_new)
+    f_act = torch.exp(log_f + m_prev - m_new)
+    c_new = f_act * c_prev + i_act * zt
+    n_new = f_act * n_prev + i_act
+    h_new = ot * c_new / torch.clamp(n_new, min=1.0)
+    return h_new, c_new, n_new, m_new
+
+
+def _apply_slstm(p, x, ctx, cache, mode):
+    cfg = ctx["cfg"]
+    d = cfg.d_model
+    bsz, l, _ = x.shape
+    f32 = torch.float32
+    hid = common.rms_norm(x, p["norm"], cfg.norm_eps)
+    conv_state = cache["conv"] if mode == "decode" else None
+    cx, conv_state = common.causal_conv_apply(p["conv"], hid, conv_state)
+    cx = F.silu(cx)
+    xg = (cx @ p["w_gates"]).to(f32)                           # (B, L, 4d)
+
+    if mode == "decode":
+        state = (cache["h"], cache["c"], cache["n"], cache["m"])
+        state = _slstm_step(p, cfg, xg[:, 0], state)
+        y = state[0][:, None, :]
+        new_cache = {"conv": conv_state, "h": state[0], "c": state[1],
+                     "n": state[2], "m": state[3]}
+    else:
+        # the reference's lax.scan over L as a loop of plain torch steps
+        # (no Pallas kernel there); r_gates cast to float32 once, not per
+        # step, which gives the same numbers
+        step_p = {"r_gates": p["r_gates"].to(f32),
+                  "gate_bias": p["gate_bias"]}
+        state = tuple(torch.zeros((bsz, d), dtype=f32, device=x.device)
+                      for _ in range(3)) + (
+            torch.full((bsz, d), -1e30, dtype=f32, device=x.device),)
+        ys = []
+        for t in range(l):
+            state = _slstm_step(step_p, cfg, xg[:, t], state)
+            ys.append(state[0])
+        y = torch.stack(ys, dim=1)
+        new_cache = ({"conv": conv_state, "h": state[0], "c": state[1],
+                      "n": state[2], "m": state[3]}
+                     if mode == "prefill" else None)
+
+    y = common.rms_norm(y.to(x.dtype), p["norm_out"], cfg.norm_eps)
+    up = y @ p["w_up"]
+    half = cfg.d_model
+    # jax.nn.gelu defaults to the tanh approximation
+    y = F.gelu(up[..., :half], approximate="tanh") * up[..., half:]
+    return x + y @ p["w_down"], new_cache, {}
+
+
 # ================================================================= dispatch
 _INIT = {
     base.MAMBA: _init_mamba,
     base.SHARED_ATTN: _init_shared_lora,
+    base.SLSTM: _init_slstm,
+    base.MLSTM: _init_mlstm,
 }
 _APPLY = {
     base.MAMBA: _apply_mamba,
     base.SHARED_ATTN: _apply_shared_attn,
+    base.SLSTM: _apply_slstm,
+    base.MLSTM: _apply_mlstm,
 }
 
 
@@ -194,4 +357,26 @@ def empty_block_cache(kind: str, cfg: ModelConfig, batch: int,
                     device=device),
                 "ssm": torch.zeros((batch, h, ph, n), dtype=torch.float32,
                                    device=device)}
+    f32 = torch.float32
+    if kind == base.MLSTM:
+        d_inner = cfg.ssm_expand * cfg.d_model
+        h = cfg.ssm_num_heads
+        ph = d_inner // h
+        return {"conv": torch.zeros(
+                    (batch, cfg.ssm_conv_width - 1, d_inner), dtype=dtype,
+                    device=device),
+                "c": torch.zeros((batch, h, ph, ph), dtype=f32,
+                                 device=device),
+                "n": torch.zeros((batch, h, ph), dtype=f32, device=device),
+                "m": torch.full((batch, h), -1e30, dtype=f32,
+                                device=device)}
+    if kind == base.SLSTM:
+        d = cfg.d_model
+        return {"conv": torch.zeros((batch, cfg.ssm_conv_width - 1, d),
+                                    dtype=dtype, device=device),
+                "h": torch.zeros((batch, d), dtype=f32, device=device),
+                "c": torch.zeros((batch, d), dtype=f32, device=device),
+                "n": torch.zeros((batch, d), dtype=f32, device=device),
+                "m": torch.full((batch, d), -1e30, dtype=f32,
+                                device=device)}
     raise not_ported(kind)

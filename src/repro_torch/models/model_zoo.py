@@ -1,7 +1,7 @@
 """build_model(cfg): the entry point for the archs of `configs`.
 
 The port builds the decoder-only archs whose block kinds it has ported
-(zamba2 in this slice) and refuses the rest with NotImplementedError
+(zamba2 and xlstm-350m) and refuses the rest with NotImplementedError
 naming the ROADMAP item that ports them.
 """
 from __future__ import annotations

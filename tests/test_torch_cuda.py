@@ -1,7 +1,7 @@
 """Tests that need the card: the CUDA kernels (lstm_cell, flash_attention,
-ssm_scan) against their plain versions, the reduced zamba2 model on CUDA
-against the same model on the CPU, and the device search on CUDA against
-the same search on the CPU.
+ssm_scan, mlstm_chunk) against their plain versions, the reduced zamba2
+and xlstm models on CUDA against the same models on the CPU, and the
+device search on CUDA against the same search on the CPU.
 Marked `cuda`; each skips with a reason where torch sees no CUDA device.
 Run them on a GPU machine with
 
@@ -18,6 +18,7 @@ from repro_torch.configs import get_config
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_plain)
 from repro_torch.kernels.lstm_cell import lstm_cell, lstm_cell_plain
+from repro_torch.kernels.mlstm_chunk import mlstm_chunk, mlstm_chunk_plain
 from repro_torch.kernels.ssm_scan import ssm_scan, ssm_scan_plain
 from repro_torch.models import build_model
 
@@ -171,6 +172,68 @@ def test_reduced_zamba2_cuda_matches_cpu(cuda):
             torch.testing.assert_close(lg.cpu(), lc, atol=1e-4, rtol=1e-4)
             tok = lc.argmax(-1)
     assert (flash_attention.launches - f0, ssm_scan.launches - s0) == (1, 5)
+
+
+# tests/test_kernels.py::MLSTM_CASES (b, l, h, d), the reduced xlstm's
+# D = 128, xlstm-350m's prefill shape, then ragged lengths (the last chunk
+# of 64 cut short) and a head dim that is not a multiple of 64
+MLSTM_SHAPES = [(1, 64, 2, 64), (2, 128, 4, 32), (2, 256, 4, 16),
+                (2, 256, 2, 128), (4, 512, 4, 512), (1, 100, 2, 128),
+                (2, 300, 3, 512), (1, 70, 1, 80)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", MLSTM_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_mlstm_chunk_kernel_matches_plain(cuda, shape, dtype):
+    b, l, h, d = shape
+    g = torch.Generator().manual_seed(sum(shape))
+    q, k, v = (torch.randn(b, l, h, d, generator=g).to(cuda, dtype)
+               for _ in range(3))
+    ig = torch.randn(b, l, h, generator=g).to(cuda)
+    fg = (torch.randn(b, l, h, generator=g) + 2.0).to(cuda)
+    before = mlstm_chunk.launches
+    y, (c, n, m) = mlstm_chunk(q, k, v, ig, fg)
+    torch.cuda.synchronize()
+    assert mlstm_chunk.launches == before + 1
+    assert y.dtype == dtype and y.shape == q.shape
+    y_p, (c_p, n_p, m_p) = mlstm_chunk_plain(q, k, v, ig, fg)
+    # tests/test_kernels.py's tolerances; y is rounded to bf16 on output,
+    # the state is float32 on both sides
+    tol = (5e-4, 5e-3) if dtype == torch.float32 else (2e-2, 2e-2)
+    torch.testing.assert_close(y.float(), y_p.float(), atol=tol[0],
+                               rtol=tol[1])
+    torch.testing.assert_close(c, c_p, atol=5e-4, rtol=5e-3)
+    torch.testing.assert_close(n, n_p, atol=5e-4, rtol=5e-3)
+    torch.testing.assert_close(m, m_p, atol=1e-5, rtol=0)
+
+
+def test_reduced_xlstm_cuda_matches_cpu(cuda):
+    """Prefill and greedy decode of the reduced xlstm (one group of 7
+    mLSTM blocks and 1 sLSTM block) on the card (the kernel) against the
+    same parameters on the CPU (the plain path): 7 kernel launches per
+    prefill, none per decode step."""
+    model = build_model(get_config("xlstm-350m").reduced(d_model=128,
+                                                         vocab=256))
+    params = model.init(torch.Generator(cuda).manual_seed(0), device=cuda)
+    cpu = _to(params, "cpu")
+    tokens = torch.randint(0, 256, (2, 96),
+                           generator=torch.Generator().manual_seed(1))
+    before = mlstm_chunk.launches
+    with torch.inference_mode():
+        lg, cg = model.prefill(params, {"tokens": tokens.to(cuda)},
+                               max_len=100)
+        lc, cc = model.prefill(cpu, {"tokens": tokens}, max_len=100)
+        assert mlstm_chunk.launches - before == 7
+        torch.testing.assert_close(lg.cpu(), lc, atol=1e-4, rtol=1e-4)
+        tok = lc.argmax(-1)
+        for _ in range(4):
+            lg, cg = model.decode_step(params, tok.to(cuda), cg)
+            lc, cc = model.decode_step(cpu, tok, cc)
+            torch.testing.assert_close(lg.cpu(), lc, atol=1e-4, rtol=1e-4)
+            tok = lc.argmax(-1)
+    assert mlstm_chunk.launches - before == 7
 
 
 def _to(tree, device):
