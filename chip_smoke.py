@@ -6,19 +6,21 @@ check it end to end.
 
 Phases, each of which raises on failure:
   1. environment: the card's name and power limit, torch and CUDA versions;
-  2. build: every CUDA kernel (lstm_cell, flash_attention, ssm_scan,
-     mlstm_chunk), from the sources in this checkout, all nvcc processes
-     at once;
+  2. build: every CUDA source (lstm_cell, which holds the lstm_cell step
+     and lstm_sequence kernels, flash_attention, ssm_scan, mlstm_chunk),
+     from this checkout, all nvcc processes at once;
   3. each kernel against its plain PyTorch version on the card, at its
      test shapes and at the shapes the main paths give it;
-  4. the ICU LSTM models, and zamba2 and xlstm-350m at full width with one
-     group, on the card (kernel path) against the same models on the CPU
-     (plain path);
+  4. the ICU LSTM models (depth 1, and depth 2, which passes a hidden
+     sequence between layers), and zamba2 and xlstm-350m at full width
+     with one group, on the card (kernel path) against the same models on
+     the CPU (plain path);
   5. the device tabu search on CUDA against the same search on the CPU;
   6. the main paths, each with every launch counter set to 0 just before
      it and read just after:
      a. `repro_torch.launch.serve.run(patients=100)`: calibrate, strategy
-        table, lower bound, execution (lstm_cell);
+        table, lower bound, execution (lstm_sequence, one launch per ICU
+        inference and layer; no lstm_cell step);
      b. `ServingEngine(build_model(get_config("zamba2-2.7b"))).generate`
         at full width and depth in bf16: 4 prompts of 512 tokens, 32
         greedy steps (flash_attention, ssm_scan);
@@ -54,6 +56,11 @@ BF16_FLOPS = 989e12
 TEST_SHAPES = [(4, 76, 16), (8, 17, 8), (128, 64, 128), (32, 130, 256)]
 ICU_SHAPES = [(b, i, h) for (i, h) in ((76, 16), (17, 8), (76, 32))
               for b in (16, 8)]
+ICU_T = 48                  # the ICU sequences' length
+SEQ_TEST_T = (48, 130)      # lstm_sequence at the test shapes
+# the H100's SM boost clock (data sheet), for lstm_sequence's serial
+# latency estimate
+SM_CLOCK_HZ = 1.98e9
 KERNEL_ATOL = 1e-5
 MODEL_ATOL = 1e-4
 SERVE_PATIENTS = 100
@@ -75,6 +82,13 @@ ZAMBA_ATTN = (4, 32, 32, 512, 512, 80, True, None, None)
 RAGGED_ATTN = [(1, 4, 2, 1, 300, 64, True, None, None),
                (2, 4, 2, 100, 100, 80, True, 33, None),
                (1, 8, 1, 64, 64, 256, False, None, 50.0)]
+# head dims that are not multiples of 16 (the bf16 kernel pads them with
+# zero columns), a decode-like single query over 512 keys, and GQA, a
+# window, softcap and ragged L together
+PADDED_ATTN = [(2, 4, 2, 200, 200, 40, True, None, None),
+               (1, 4, 4, 130, 130, 72, False, None, None),
+               (1, 32, 32, 1, 512, 80, True, None, None),
+               (2, 32, 4, 300, 300, 80, True, 64, 30.0)]
 ATTN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 # ssm_scan: tests/test_kernels.py::SSM_CASES, zamba2's prefill shape and
 # two ragged shapes, (b, l, h, p, n). 3e-4 in f32 (tests/test_kernels.py); with x/b/c in
@@ -138,6 +152,41 @@ def cell_bound(shape):
     nbytes = 4 * (b * i + 2 * b * h + 4 * h * (i + h) + 4 * h + 2 * b * h)
     ops = 8 * b * h * (i + h) + 25 * b * h
     return nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_FLOPS * 1e3
+
+
+def sequence_inputs(torch, shape, t_len, device, seed):
+    """xs (T, B, I) and one layer's weights, drawn as `cell_inputs` draws
+    them."""
+    b, i, h = shape
+    g = torch.Generator().manual_seed(seed)
+    s = 1.0 / (i + h) ** 0.5
+    args = [torch.randn(t_len, b, i, generator=g),
+            torch.randn(i, 4, h, generator=g) * s,
+            torch.randn(h, 4, h, generator=g) * s,
+            torch.randn(4, h, generator=g) * 0.1]
+    return [a.to(device) for a in args]
+
+
+def sequence_bound(shape, t_len):
+    """Least time (ms) of one lstm_sequence call (one layer over T steps,
+    h_T and c_T out, no sequence), as its two parts: xs and the weights
+    read once and h_T, c_T written once over the HBM rate, and T steps of
+    `cell_bound`'s operations over the float32 rate. The bound is the
+    larger; neither sees the T dependent steps, which `serial_estimate`
+    does."""
+    b, i, h = shape
+    nbytes = 4 * (t_len * b * i + 4 * h * (i + h) + 4 * h + 2 * b * h)
+    ops = t_len * (8 * b * h * (i + h) + 25 * b * h)
+    return nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_FLOPS * 1e3
+
+
+def serial_estimate(shape, t_len):
+    """An estimate (ms), not a bound, of the T dependent steps alone: per
+    step a chain of H FMAs (4 cycles each) and the gate math's four
+    dependent special-function operations (~20 cycles each), at the boost
+    clock."""
+    h = shape[2]
+    return t_len * (4 * h + 4 * 20) / SM_CLOCK_HZ * 1e3
 
 
 def flash_inputs(torch, case, dtype, device, seed):
@@ -478,7 +527,9 @@ def main():
     from repro_torch.kernels import build
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_plain)
-    from repro_torch.kernels.lstm_cell import lstm_cell, lstm_cell_plain
+    from repro_torch.kernels.lstm_cell import (lstm_cell, lstm_cell_plain,
+                                               lstm_sequence,
+                                               lstm_sequence_plain)
     from repro_torch.kernels.mlstm_chunk import mlstm_chunk, mlstm_chunk_plain
     from repro_torch.kernels.ssm_scan import ssm_scan, ssm_scan_plain
     from repro_torch.launch import serve
@@ -516,8 +567,31 @@ def main():
                                f"{KERNEL_ATOL}")
         max_err = max(max_err, err)
 
+    # lstm_sequence: a whole layer in one launch, h_T, c_T and the hidden
+    # sequence against the scanned plain cell
+    seq_err = 0.0
+    for k, (shape, t_len) in enumerate(
+            [(s_, ICU_T) for s_ in ICU_SHAPES]
+            + [(s_, t) for s_ in TEST_SHAPES for t in SEQ_TEST_T]):
+        args = sequence_inputs(torch, shape, t_len, cuda, seed=400 + k)
+        before = lstm_sequence.launches
+        hk, ck, hsk = lstm_sequence(*args, return_sequence=True)
+        launched = lstm_sequence.launches - before
+        hp, cp, hsp = lstm_sequence_plain(*args, return_sequence=True)
+        torch.cuda.synchronize()
+        err = max(float((a - b).abs().max())
+                  for a, b in ((hk, hp), (ck, cp), (hsk, hsp)))
+        print(f"lstm_sequence {shape} T={t_len}: max |kernel - plain| "
+              f"(h_T, c_T, sequence) = {err:.3e}; launches {launched}")
+        if launched != 1 or hsk.shape != hsp.shape or not err <= KERNEL_ATOL:
+            raise RuntimeError(f"lstm_sequence {shape} T={t_len}: error "
+                               f"{err} > {KERNEL_ATOL} or {launched} "
+                               f"launches")
+        seq_err = max(seq_err, err)
+
     flash_err = {}
-    for k, case in enumerate(ATTN_CASES + [ZAMBA_ATTN] + RAGGED_ATTN):
+    for k, case in enumerate(ATTN_CASES + [ZAMBA_ATTN] + RAGGED_ATTN
+                             + PADDED_ATTN):
         for dtype in (torch.float32, torch.bfloat16):
             name = str(dtype).removeprefix("torch.")
             q, kk, v = flash_inputs(torch, case, dtype, cuda, seed=k)
@@ -588,31 +662,35 @@ def main():
                                    f"plain version disagree")
             mlstm_err[(shape, name)] = max(errs.values())
 
-    # 4. models on the card vs the same models on the CPU
-    for cfg in ICU_WORKLOADS:
+    # 4. models on the card vs the same models on the CPU: the three ICU
+    # workloads as configured (depth 1) and stacked to depth 2
+    for cfg in [c for base in ICU_WORKLOADS
+                for c in (base, dataclasses.replace(base, depth=2))]:
         gen_seed = 17
         gpu = ICULSTM(cfg, generator=torch.Generator().manual_seed(gen_seed),
                       device=cuda)
         cpu = ICULSTM(cfg, generator=torch.Generator().manual_seed(gen_seed),
                       device="cpu")
         x, _ = icu.generate(cfg, EXECUTE_RECORDS, seed=3)
-        before = lstm_cell.launches
+        before = (lstm_sequence.launches, lstm_cell.launches)
         with torch.inference_mode():
             lg = gpu(torch.as_tensor(x, device=cuda))
             lc = cpu(torch.as_tensor(x))
         torch.cuda.synchronize()
-        launched = lstm_cell.launches - before
+        launched = (lstm_sequence.launches - before[0],
+                    lstm_cell.launches - before[1])
         err = float((lg.cpu() - lc).abs().max())
-        print(f"ICULSTM {cfg.name}: logits {tuple(lg.shape)}, max |cuda - "
-              f"cpu| = {err:.3e}, kernel launches {launched}")
+        print(f"ICULSTM {cfg.name} depth {cfg.depth}: logits "
+              f"{tuple(lg.shape)}, max |cuda - cpu| = {err:.3e}, "
+              f"(lstm_sequence, lstm_cell) launches {launched}")
         if lg.shape != (EXECUTE_RECORDS, cfg.num_classes) or \
                 not bool(torch.isfinite(lg).all()):
             raise RuntimeError(f"{cfg.name}: bad logits {tuple(lg.shape)}")
         if not err <= MODEL_ATOL:
             raise RuntimeError(f"{cfg.name}: logits differ by {err}")
-        if launched != cfg.seq_len * cfg.depth:
-            raise RuntimeError(f"{cfg.name}: {launched} launches, expected "
-                               f"{cfg.seq_len * cfg.depth}")
+        if launched != (cfg.depth, 0):
+            raise RuntimeError(f"{cfg.name} depth {cfg.depth}: launches "
+                               f"{launched}, expected ({cfg.depth}, 0)")
 
     # zamba2 at full width, one group, float32: card vs CPU
     zcfg = dataclasses.replace(get_config("zamba2-2.7b"), num_layers=6,
@@ -672,13 +750,15 @@ def main():
 
     # 6. the main path, with every counter read around it alone
     lstm_cell.launches = 0
+    lstm_sequence.launches = 0
     scheduler_torch.tabu_search_batched.calls = 0
     t0 = time.perf_counter()
     results, lb = serve.run(patients=SERVE_PATIENTS, horizon=30.0, seed=0,
                             execute=True, verbose=False)
     torch.cuda.synchronize()
     serve_s = time.perf_counter() - t0
-    launches = lstm_cell.launches
+    launches = lstm_sequence.launches
+    step_launches = lstm_cell.launches
     search_calls = scheduler_torch.tabu_search_batched.calls
     ours = results["ours (algorithm 2)"]
     for name, sched in results.items():
@@ -686,8 +766,10 @@ def main():
               f"unweighted {sched.unweighted_sum:9.0f} "
               f"last {sched.last_end:6.0f}")
     print(f"serve lower bound (eq.6)   {lb:9.0f}")
-    print(f"serve: {len(ours.entries)} jobs in {serve_s:.2f} s, lstm_cell "
-          f"launches {launches}, device-search calls {search_calls}")
+    print(f"serve: {len(ours.entries)} jobs, untraced serve.run "
+          f"{serve_s:.4f} s [{card}], lstm_sequence launches {launches}, "
+          f"lstm_cell launches {step_launches}, device-search calls "
+          f"{search_calls}")
     if not ours.weighted_sum >= lb - 1e-9:
         raise RuntimeError("ours is below the lower bound")
     worse = [n for n, s in results.items()
@@ -698,41 +780,48 @@ def main():
         raise RuntimeError(f"{len(ours.entries)} entries")
     if search_calls < 1:
         raise RuntimeError("the main path did not take the device search")
-    if launches < 48 * SERVE_PATIENTS:
-        raise RuntimeError(f"only {launches} lstm_cell launches")
+    # one inference per job, two per workload in calibrate, each one
+    # launch per layer (depth 1)
+    want = (SERVE_PATIENTS + 2 * len(ICU_WORKLOADS)) * ICU_WORKLOADS[0].depth
+    if (launches, step_launches) != (want, 0):
+        raise RuntimeError(f"serve.run: lstm_sequence launches {launches}, "
+                           f"lstm_cell launches {step_launches}; expected "
+                           f"{want} and 0")
 
     # 6b, 6c. the LLM serving paths, each with every counter read around
     # it alone
-    kernels = {"lstm_cell": lstm_cell, "flash_attention": flash_attention,
-               "ssm_scan": ssm_scan, "mlstm_chunk": mlstm_chunk}
+    kernels = {"lstm_cell": lstm_cell, "lstm_sequence": lstm_sequence,
+               "flash_attention": flash_attention, "ssm_scan": ssm_scan,
+               "mlstm_chunk": mlstm_chunk}
     zcfg = get_config("zamba2-2.7b")
     zengine, zbatch, zl = drive_generate(
-        torch, zcfg, kernels, {"lstm_cell": 0,
+        torch, zcfg, kernels, {"lstm_cell": 0, "lstm_sequence": 0,
                                "flash_attention": zcfg.num_groups,
                                "ssm_scan": 5 * zcfg.num_groups,
                                "mlstm_chunk": 0}, card)
     flash_launches, ssm_launches = zl["flash_attention"], zl["ssm_scan"]
     xcfg = get_config("xlstm-350m")
     xengine, xbatch, xl = drive_generate(
-        torch, xcfg, kernels, {"lstm_cell": 0, "flash_attention": 0,
-                               "ssm_scan": 0,
+        torch, xcfg, kernels, {"lstm_cell": 0, "lstm_sequence": 0,
+                               "flash_attention": 0, "ssm_scan": 0,
                                "mlstm_chunk": XLSTM_BLOCKS * xcfg.num_groups},
         card)
     mlstm_launches = xl["mlstm_chunk"]
 
-    # main-path launches per (B, I, H): calibrate runs two inferences of
-    # CALIBRATE_RECORDS per workload, execution one of EXECUTE_RECORDS
-    # per job
+    # main-path lstm_sequence launches per (B, I, H): calibrate runs two
+    # inferences of CALIBRATE_RECORDS per workload, execution one of
+    # EXECUTE_RECORDS per job, each one launch per layer
     mix = {}
     for cfg in ICU_WORKLOADS:
-        steps = cfg.seq_len * cfg.depth
-        mix[(CALIBRATE_RECORDS, cfg.input_dim, cfg.hidden)] = 2 * steps
-        mix[(EXECUTE_RECORDS, cfg.input_dim, cfg.hidden)] = steps * sum(
+        mix[(CALIBRATE_RECORDS, cfg.input_dim, cfg.hidden)] = 2 * cfg.depth
+        mix[(EXECUTE_RECORDS, cfg.input_dim, cfg.hidden)] = cfg.depth * sum(
             e.job.workload == cfg.name for e in ours.entries)
     if sum(mix.values()) != launches:
         raise RuntimeError(f"launch mix {sum(mix.values())} != {launches}")
 
-    # 7. timings
+    # 7. timings. lstm_cell has no launch on the main path any more; its
+    # times are averaged over the ICU shapes with lstm_sequence's
+    # main-path mix as the weights
     per_shape = {}
     for k, shape in enumerate(ICU_SHAPES):
         args = cell_inputs(torch, shape, cuda, seed=100 + k)
@@ -755,27 +844,81 @@ def main():
               f"kernel replayed from a CUDA graph {t['graph_ms']:.5f} ms, "
               f"plain {t['plain_ms']:.5f} ms, torch.lstm_cell "
               f"{t['library_ms']:.5f} ms, bound {t['bound_ms']:.6f} ms "
-              f"({t['bound_by']}), main-path launches {mix[shape]}")
+              f"({t['bound_by']}), main-path launches 0")
+
+    # lstm_sequence per forward (one layer, T = 48, h_T and c_T out, as
+    # ICULSTM's depth-1 layer calls it); cuDNN's LSTM (torch.nn.LSTM, TF32
+    # off) computes the same function as the library yardstick
+    per_seq = {}
+    allow_tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    for k, shape in enumerate(ICU_SHAPES):
+        args = sequence_inputs(torch, shape, ICU_T, cuda, seed=500 + k)
+        b, i, h = shape
+        lstm = torch.nn.LSTM(i, h).to(cuda)
+        with torch.no_grad():
+            lstm.weight_ih_l0.copy_(args[1].reshape(i, 4 * h).t())
+            lstm.weight_hh_l0.copy_(args[2].reshape(h, 4 * h).t())
+            lstm.bias_ih_l0.copy_(args[3].reshape(4 * h))
+            lstm.bias_hh_l0.zero_()
+        with torch.inference_mode():
+            _, (h_lib, _) = lstm(args[0])
+            lib_err = float((h_lib[0] - lstm_sequence(*args)[0]).abs().max())
+            t = {"ms": event_ms(torch, lambda: lstm_sequence(*args), 1000),
+                 "graph_ms": graph_ms(torch, lambda: lstm_sequence(*args)),
+                 "plain_ms": event_ms(torch, lambda: lstm_sequence_plain(
+                     *args), 50, warmup=5),
+                 "library_ms": event_ms(torch, lambda: lstm(args[0]), 500)}
+        t["bytes_ms"], t["ops_ms"] = sequence_bound(shape, ICU_T)
+        t["bound_ms"] = max(t["bytes_ms"], t["ops_ms"])
+        t["bound_by"] = "bytes" if t["bytes_ms"] >= t["ops_ms"] \
+            else "operations"
+        t["serial_ms"] = serial_estimate(shape, ICU_T)
+        per_seq[shape] = t
+        print(f"[{card}] lstm_sequence B,I,H={shape} T={ICU_T}: kernel "
+              f"{t['ms']:.5f} ms, kernel replayed from a CUDA graph "
+              f"{t['graph_ms']:.5f} ms, plain {t['plain_ms']:.5f} ms, "
+              f"cuDNN nn.LSTM {t['library_ms']:.5f} ms (max |cudnn - "
+              f"kernel| h_T {lib_err:.3e}), bound {t['bound_ms']:.6f} ms "
+              f"({t['bound_by']}), serial-latency estimate "
+              f"{t['serial_ms']:.5f} ms, main-path launches {mix[shape]}")
+    torch.backends.cudnn.allow_tf32 = allow_tf32
 
     q, kk, v = flash_inputs(torch, ZAMBA_ATTN, torch.bfloat16, cuda, seed=200)
     kw = flash_kwargs(ZAMBA_ATTN)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     ft = {"ms": event_ms(torch, lambda: flash_attention(q, kk, v, **kw), 50,
                          warmup=5),
+          "graph_ms": graph_ms(torch, lambda: flash_attention(q, kk, v, **kw),
+                               per_graph=20),
           "plain_ms": event_ms(torch, lambda: flash_attention_plain(
               q, kk, v, **kw), 10, warmup=2),
           "library_ms": event_ms(torch, lambda: sdpa(q, kk, v,
                                                      is_causal=True), 50,
-                                 warmup=5)}
+                                 warmup=5),
+          "library_graph_ms": graph_ms(torch, lambda: sdpa(
+              q, kk, v, is_causal=True), per_graph=20)}
     lib_err = float((sdpa(q, kk, v, is_causal=True).float()
                      - flash_attention(q, kk, v, **kw).float()).abs().max())
     ft["bytes_ms"], ft["ops_ms"] = flash_bound(ZAMBA_ATTN, 2, BF16_FLOPS)
-    print(f"[{card}] flash_attention {ZAMBA_ATTN} bf16: kernel "
-          f"{ft['ms']:.5f} ms, plain {ft['plain_ms']:.5f} ms, "
-          f"scaled_dot_product_attention {ft['library_ms']:.5f} ms (max "
-          f"|sdpa - kernel| {lib_err:.3e}), bound bytes "
-          f"{ft['bytes_ms']:.6f} ms / operations {ft['ops_ms']:.6f} ms, "
-          f"main-path launches {flash_launches}")
+    print(f"[{card}] flash_attention {ZAMBA_ATTN} bf16 (tensor cores): "
+          f"kernel {ft['ms']:.5f} ms (CUDA graph {ft['graph_ms']:.5f} ms), "
+          f"plain {ft['plain_ms']:.5f} ms, scaled_dot_product_attention "
+          f"{ft['library_ms']:.5f} ms (CUDA graph "
+          f"{ft['library_graph_ms']:.5f} ms; max |sdpa - kernel| "
+          f"{lib_err:.3e}), kernel / sdpa {ft['ms'] / ft['library_ms']:.3f}"
+          f", bound bytes {ft['bytes_ms']:.6f} ms / operations "
+          f"{ft['ops_ms']:.6f} ms, main-path launches {flash_launches}")
+    q, kk, v = flash_inputs(torch, ZAMBA_ATTN, torch.float32, cuda, seed=200)
+    f32_ms = event_ms(torch, lambda: flash_attention(q, kk, v, **kw), 20,
+                      warmup=3)
+    f32_sdpa = event_ms(torch, lambda: sdpa(q, kk, v, is_causal=True), 20,
+                        warmup=3)
+    print(f"[{card}] flash_attention {ZAMBA_ATTN} float32 (CUDA cores): "
+          f"kernel {f32_ms:.5f} ms, scaled_dot_product_attention "
+          f"{f32_sdpa:.5f} ms, bound bytes "
+          f"{flash_bound(ZAMBA_ATTN, 4, F32_FLOPS)[0]:.6f} ms / operations "
+          f"{flash_bound(ZAMBA_ATTN, 4, F32_FLOPS)[1]:.6f} ms")
 
     args = ssm_inputs(torch, ZAMBA_SSM, torch.bfloat16, cuda, seed=201)
     st = {"ms": event_ms(torch, lambda: ssm_scan(*args), 20, warmup=3),
@@ -805,9 +948,13 @@ def main():
           f"{mlstm_bound(XLSTM_MLSTM, 2, F32_FLOPS)[1]:.6f} ms), main-path "
           f"launches {mlstm_launches}")
 
-    def mean_over_mix(key):
-        return sum(per_shape[s][key] * c for s, c in mix.items()) \
+    def mean_over_mix(table, key):
+        return sum(table[s][key] * c for s, c in mix.items()) \
             / sum(mix.values())
+
+    def bound_by(table):
+        return ("bytes" if mean_over_mix(table, "bytes_ms")
+                >= mean_over_mix(table, "ops_ms") else "operations")
 
     for cfg in ICU_WORKLOADS:
         gen = torch.Generator().manual_seed(5)
@@ -857,12 +1004,22 @@ def main():
         "name": "lstm_cell", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/lstm_cell.cu",
         "replaces": "src/repro/kernels/lstm_cell.py:25",
-        "launches": launches, "max_abs_err": max_err,
-        "ms": mean_over_mix("ms"), "plain_ms": mean_over_mix("plain_ms"),
-        "bound_ms": mean_over_mix("bound_ms"),
-        "bound_by": ("bytes" if mean_over_mix("bytes_ms")
-                     >= mean_over_mix("ops_ms") else "operations"),
-        "library_ms": mean_over_mix("library_ms")}, {
+        "launches": step_launches, "max_abs_err": max_err,
+        "ms": mean_over_mix(per_shape, "ms"),
+        "plain_ms": mean_over_mix(per_shape, "plain_ms"),
+        "bound_ms": mean_over_mix(per_shape, "bound_ms"),
+        "bound_by": bound_by(per_shape),
+        "library_ms": mean_over_mix(per_shape, "library_ms")}, {
+        "name": "lstm_sequence", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/lstm_cell.cu",
+        "replaces": "src/repro/kernels/lstm_cell.py:25, scanned by "
+                    "src/repro/models/lstm.py:52-58",
+        "launches": launches, "max_abs_err": seq_err,
+        "ms": mean_over_mix(per_seq, "ms"),
+        "plain_ms": mean_over_mix(per_seq, "plain_ms"),
+        "bound_ms": mean_over_mix(per_seq, "bound_ms"),
+        "bound_by": bound_by(per_seq),
+        "library_ms": mean_over_mix(per_seq, "library_ms")}, {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:33",
@@ -893,10 +1050,9 @@ def main():
         "bound_by": "bytes" if mt["bytes_ms"] >= mt["ops_ms"]
         else "operations",
         "library_ms": None}]}))
-    # the one card this run used, whatever else the host shows
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": 1}}))
+        "count": torch.cuda.device_count()}}))
     return 0
 
 

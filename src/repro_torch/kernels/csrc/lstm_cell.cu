@@ -1,29 +1,57 @@
-// One LSTM cell step in float32, for Hopper (sm_90a).
+// The LSTM cell in float32, for Hopper (sm_90a): one step, and a whole
+// layer's sequence in one launch.
 //
 // Replaces the Pallas TPU kernel `_lstm_kernel`, launched by `lstm_cell`
-// in src/repro/kernels/lstm_cell.py. Same function: gate order i, f, g, o,
-// weights laid out (I, 4, H) and (H, 4, H), bias (4, H), float32 sums,
+// in src/repro/kernels/lstm_cell.py, and its scan over time in the
+// reference's `ICULSTM.forward` (src/repro/models/lstm.py). Same function:
+// gate order i, f, g, o, weights laid out (I, 4, H) and (H, 4, H), bias
+// (4, H), float32 sums,
 //   c' = sigmoid(f) c + sigmoid(i) tanh(g),   h' = sigmoid(o) tanh(c').
 //
 // What bounds it on an H100: at the ICU shapes (B = 8 or 16, I <= 76,
 // H <= 32) one step moves 4-70 KB and does under 0.4 MFLOP, which is
-// nanoseconds at 3.35 TB/s or 67 TFLOP/s; the step is bound by latency:
-// the cost of launching it, and each thread's serial walk over I + H
-// inputs (5-14 us of device time per step, PERF.md). The design therefore
-// does the whole step in ONE launch (both products, the bias and the gate
-// math fused, no intermediate in device memory) and keeps the kernel simple:
-//   * one block per (batch row, tile of up to 256 hidden units);
-//   * the row's x and h are staged once in shared memory;
-//   * one thread per hidden unit j sums its four gate pre-activations over
-//     I and H in float32; neighbouring threads read neighbouring j of
-//     wx[k, g, :] and wh[k, g, :], so the weight reads are coalesced;
-//   * the fused sigmoid/tanh then writes h' and c'.
-// Launch overhead is what a later change would remove (a whole-sequence
-// kernel, one launch per forward instead of 48).
+// nanoseconds at 3.35 TB/s or 67 TFLOP/s; the step is bound by latency.
 //
-// Plain C entry point, loaded with ctypes. It returns cudaGetLastError()
+// `lstm_cell_kernel` (one step, `repro_lstm_cell_f32`): both products, the
+// bias and the gate math fused in one launch; one block per (batch row,
+// tile of up to 256 hidden units), the row's x and h staged in shared
+// memory, one thread per hidden unit summing its four gates over I and H
+// with coalesced weight reads. Called once per timestep, its cost is the
+// host's launch (29-43 us through the wrapper against 5-14 us on the card).
+//
+// `lstm_sequence_kernel` (T steps, `repro_lstm_sequence_f32`): a layer in
+// ONE launch, so the host pays one launch per layer, not one per step. The
+// serial chain of T dependent steps is what is left; the design keeps each
+// step short and everything it reads on chip:
+//   * one block per batch row; the sequence runs in segments of TS steps,
+//     the whole sequence when it fits (every ICU shape: T = 48);
+//   * wx is staged once in shared memory by cp.async when it takes at
+//     most half of it (39 KB at I = 76, H = 32), else read through L1/L2;
+//     a segment's inputs arrive by cp.async in one burst;
+//   * the input half x_t . wx does not depend on h: it is computed first
+//     for the whole segment, 16 steps a pass, one thread per gate column,
+//     the passes spread over R groups of threads (256 threads a block for
+//     H <= 32), and kept in shared memory;
+//   * the recurrence, H <= 32 (every ICU shape): one warp walks the
+//     steps. Lane j owns hidden unit j: its four gates' columns of wh
+//     (4H floats) in registers, h and c in registers; h passes between the
+//     lanes through shared memory under __syncwarp, so a step waits on no
+//     block barrier, only on its dot over H and the gate math;
+//   * the recurrence, H > 32 (up to 256): one thread per gate column, wh
+//     read through L1/L2 (1 MiB at H = 256); a step is a dot over H
+//     against h in shared memory, a barrier, the gate math by H threads,
+//     and a barrier;
+//   * the gate math takes exp2 and the reciprocal from the special-function
+//     unit (`sigmoid_sfu`, `tanh_sfu`): expf, tanhf and IEEE division are
+//     branchy instruction sequences, and the gate math is most of a step's
+//     serial chain.
+//   x . wx and h . wh are summed apart and then added, with the bias last,
+//   as the step kernel does.
+//
+// Plain C entry points, loaded with ctypes. Each returns cudaGetLastError()
 // after the launch, so a refused launch is reported to the caller.
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
@@ -109,5 +137,295 @@ extern "C" int repro_lstm_cell_f32(const void* x, const void* h,
       static_cast<const float*>(c), static_cast<const float*>(wx),
       static_cast<const float*>(wh), static_cast<const float*>(b),
       static_cast<float*>(h_out), static_cast<float*>(c_out), I, H);
+  return static_cast<int>(cudaGetLastError());
+}
+
+namespace {
+
+constexpr int SEQ_TC = 16;   // timesteps of the input half per pass
+constexpr int REG_H = 32;    // hidden sizes one warp runs, wh in registers
+constexpr size_t SEQ_SMEM_CAP = 200 * 1024;  // shared memory a block takes
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// The gate math on the special-function unit: exp2 and reciprocal in one
+// instruction each, where expf, tanhf and an IEEE division are branchy
+// sequences on the step's serial chain. Each is within a few 1e-7 of the
+// exact value on [-1, 1]; chip_smoke.py and tests/test_torch_cuda.py hold
+// whole sequences (T up to 130) to the plain version at 1e-5.
+__device__ __forceinline__ float sigmoid_sfu(float v) {
+  return __fdividef(1.f, 1.f + __expf(-v));
+}
+
+__device__ __forceinline__ float tanh_sfu(float v) {
+  const float e = __expf(-2.f * fabsf(v));
+  return copysignf(__fdividef(1.f - e, 1.f + e), v);
+}
+
+// How the sequence kernel uses shared memory, in floats: h (H, zero-padded
+// to at least REG_H), the step's gates (4H), wx (I x 4H) when staged, then
+// a segment of
+// TS timesteps: its inputs (TS / SEQ_TC passes of I x SEQ_TC, k-major) and
+// its input half (TS x 4H).
+struct SeqLayout {
+  size_t h, gates, wx, x, xw, total;
+  __host__ __device__ SeqLayout(int TS, int I, int H, bool stage_wx) {
+    const size_t G = 4 * static_cast<size_t>(H);
+    h = 0;
+    gates = H > REG_H ? (H + 3) & ~3 : REG_H;
+    wx = gates + G;
+    x = wx + (stage_wx ? static_cast<size_t>(I) * G : 0);
+    xw = x + static_cast<size_t>(TS) * I;
+    total = xw + static_cast<size_t>(TS) * G;
+  }
+};
+
+// xs (T, B, I); hs (T, B, H) or null. One block per batch row; blockDim.x
+// = R x G32, G32 = 4H rounded up to 32: R groups of one thread per gate
+// column share the input half's passes. TS (a multiple of SEQ_TC) steps a
+// segment. HR: the recurrence's width on one warp (8, 16 or 32, at least
+// H; wh and h zero-padded to it), or 0 for the block-wide recurrence.
+template <int HR>
+__global__ void lstm_sequence_kernel(const float* __restrict__ xs,
+                                     const float* __restrict__ wx,
+                                     const float* __restrict__ wh,
+                                     const float* __restrict__ b,
+                                     float* __restrict__ h_out,
+                                     float* __restrict__ c_out,
+                                     float* __restrict__ hs, int T, int B,
+                                     int I, int H, int TS, int stage_wx) {
+  extern __shared__ __align__(16) float seq_smem[];
+  const SeqLayout lay(TS, I, H, stage_wx);
+  float* hsh = seq_smem + lay.h;
+  float* gates = seq_smem + lay.gates;
+  float* xsh = seq_smem + lay.x;
+  float* xwsh = seq_smem + lay.xw;
+  const int row = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int G = 4 * H;
+  const int g32 = (G + 31) & ~31;
+  const int n = tid % g32;          // gate column: gate n / H, unit n % H
+  const int grp = tid / g32;        // which passes of the input half
+  const int groups = blockDim.x / g32;
+  const bool col = n < G;
+
+  if (stage_wx)
+    for (int e = tid; e < I * H; e += blockDim.x)  // I x 4H floats, by 4
+      cp_async16(seq_smem + lay.wx + 4 * e, wx + 4 * e);
+  for (int e = tid; e < static_cast<int>(lay.gates); e += blockDim.x)
+    hsh[e] = 0.f;
+
+  // the recurrence's state, kept from one segment to the next
+  float h = 0.f, c = 0.f;
+  constexpr int WR = HR > 0 ? HR : 1;
+  float w[4][WR];
+  float bias[4];
+  if (HR > 0) {  // lane j owns unit j: its four gates' columns of wh
+#pragma unroll
+    for (int g = 0; g < 4; ++g) {
+#pragma unroll
+      for (int k = 0; k < WR; ++k)
+        w[g][k] = (tid < H && k < H)
+                      ? wh[static_cast<long long>(k) * G + g * H + tid]
+                      : 0.f;
+      bias[g] = tid < H ? b[g * H + tid] : 0.f;
+    }
+  } else {
+    bias[0] = col ? b[n] : 0.f;
+  }
+
+  for (int s0 = 0; s0 < T; s0 += TS) {
+    const int sn = min(TS, T - s0);
+    // 1. the segment's inputs, by cp.async, k-major within each pass
+    for (int e = tid; e < sn * I; e += blockDim.x) {
+      const int t = e / I, k = e - t * I;
+      cp_async4(xsh + ((t / SEQ_TC) * I + k) * SEQ_TC + t % SEQ_TC,
+                xs + (static_cast<long long>(s0 + t) * B + row) * I + k);
+    }
+    cp_async_wait_all();
+    __syncthreads();
+
+    // 2. the input half, x_t . wx, SEQ_TC steps a pass, into xwsh
+    if (col) {
+      const int passes = (sn + SEQ_TC - 1) / SEQ_TC;
+      const auto run_passes = [&](const float* wcol) {
+        for (int pass = grp; pass < passes; pass += groups) {
+          const float* xp = xsh + static_cast<size_t>(pass) * I * SEQ_TC;
+          float acc[SEQ_TC];
+#pragma unroll
+          for (int t = 0; t < SEQ_TC; ++t) acc[t] = 0.f;
+#pragma unroll 4
+          for (int k = 0; k < I; ++k) {
+            const float wk = wcol[static_cast<long long>(k) * G];
+            const float4* x4 = reinterpret_cast<const float4*>(xp + k * SEQ_TC);
+#pragma unroll
+            for (int q = 0; q < SEQ_TC / 4; ++q) {
+              const float4 v = x4[q];
+              acc[4 * q] = fmaf(v.x, wk, acc[4 * q]);
+              acc[4 * q + 1] = fmaf(v.y, wk, acc[4 * q + 1]);
+              acc[4 * q + 2] = fmaf(v.z, wk, acc[4 * q + 2]);
+              acc[4 * q + 3] = fmaf(v.w, wk, acc[4 * q + 3]);
+            }
+          }
+          const int t0 = pass * SEQ_TC;
+#pragma unroll
+          for (int t = 0; t < SEQ_TC; ++t)
+            if (t0 + t < sn) xwsh[(t0 + t) * G + n] = acc[t];
+        }
+      };
+      if (stage_wx)
+        run_passes(seq_smem + lay.wx + n);
+      else
+        run_passes(wx + n);
+    }
+    __syncthreads();
+
+    // 3. the recurrence over the segment
+    if (HR > 0) {
+      // H <= 32: warp 0 alone; lane j owns unit j, h and c in registers;
+      // h passes through shared memory between the lanes of one warp, so a
+      // step waits on no block barrier. The dot runs over HR >= H in order
+      // (zero weights past H), as the step kernel's does over H.
+      if (tid < 32) {
+        for (int t = 0; t < sn; ++t) {
+          float hv[WR], pre[4];
+#pragma unroll
+          for (int k = 0; k < WR; k += 4) {
+            const float4 v = *reinterpret_cast<const float4*>(hsh + k);
+            hv[k] = v.x;
+            hv[k + 1] = v.y;
+            hv[k + 2] = v.z;
+            hv[k + 3] = v.w;
+          }
+#pragma unroll
+          for (int g = 0; g < 4; ++g)
+            pre[g] = tid < H ? xwsh[t * G + g * H + tid] : 0.f;
+          __syncwarp();  // every lane has read h before it changes
+          // k outermost: the four gates' sums are four independent chains
+          float a[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+          for (int k = 0; k < WR; ++k)
+#pragma unroll
+            for (int g = 0; g < 4; ++g) a[g] = fmaf(hv[k], w[g][k], a[g]);
+          if (tid < H) {
+            const float ig = sigmoid_sfu(pre[0] + a[0] + bias[0]);
+            const float fg = sigmoid_sfu(pre[1] + a[1] + bias[1]);
+            const float gg = tanh_sfu(pre[2] + a[2] + bias[2]);
+            const float og = sigmoid_sfu(pre[3] + a[3] + bias[3]);
+            c = fg * c + ig * gg;
+            h = og * tanh_sfu(c);
+            hsh[tid] = h;
+            if (hs != nullptr)
+              hs[(static_cast<long long>(s0 + t) * B + row) * H + tid] = h;
+          }
+          __syncwarp();
+        }
+      }
+    } else {
+      // H > 32: one thread per gate column, wh read through L1/L2; a step
+      // is the dot over H (four partial sums) against h in shared memory,
+      // a barrier, the gate math by H threads, a barrier
+      for (int t = 0; t < sn; ++t) {
+        if (col) {
+          float a[4] = {0.f, 0.f, 0.f, 0.f};
+          const float* wc = wh + n;
+          int k = 0;
+          for (; k + 4 <= H; k += 4) {
+            a[0] = fmaf(hsh[k], wc[static_cast<long long>(k) * G], a[0]);
+            a[1] = fmaf(hsh[k + 1], wc[static_cast<long long>(k + 1) * G], a[1]);
+            a[2] = fmaf(hsh[k + 2], wc[static_cast<long long>(k + 2) * G], a[2]);
+            a[3] = fmaf(hsh[k + 3], wc[static_cast<long long>(k + 3) * G], a[3]);
+          }
+          for (; k < H; ++k)
+            a[0] = fmaf(hsh[k], wc[static_cast<long long>(k) * G], a[0]);
+          gates[n] = xwsh[t * G + n] + ((a[0] + a[1]) + (a[2] + a[3])) +
+                     bias[0];
+        }
+        __syncthreads();  // the step's gates are whole; h reads are done
+        if (tid < H) {
+          const float ig = sigmoid_sfu(gates[tid]);
+          const float fg = sigmoid_sfu(gates[H + tid]);
+          const float gg = tanh_sfu(gates[2 * H + tid]);
+          const float og = sigmoid_sfu(gates[3 * H + tid]);
+          c = fg * c + ig * gg;
+          h = og * tanh_sfu(c);
+          hsh[tid] = h;
+          if (hs != nullptr)
+            hs[(static_cast<long long>(s0 + t) * B + row) * H + tid] = h;
+        }
+        __syncthreads();  // h is whole; gate reads are done
+      }
+    }
+    __syncthreads();  // the segment's buffers are free
+  }
+  if (tid < H) {
+    h_out[static_cast<long long>(row) * H + tid] = h;
+    c_out[static_cast<long long>(row) * H + tid] = c;
+  }
+}
+
+}  // namespace
+
+// xs (T, B, I); wx (I, 4, H); wh (H, 4, H); b (4, H); h_out, c_out (B, H);
+// hs (T, B, H) or null; all float32, contiguous, on one device; T, B >= 1,
+// 1 <= H <= 256, and a segment of SEQ_TC steps within SEQ_SMEM_CAP.
+// `stream` is a cudaStream_t. Returns a cudaError_t (0 on success).
+extern "C" int repro_lstm_sequence_f32(const void* xs, const void* wx,
+                                       const void* wh, const void* b,
+                                       void* h_out, void* c_out, void* hs,
+                                       int T, int B, int I, int H,
+                                       void* stream) {
+  if (H < 1 || 4 * H > 1024 || T < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto bytes = [&](int ts, bool stage) {
+    return SeqLayout(ts, I, H, stage).total * sizeof(float);
+  };
+  // wx is staged when it takes at most half the cap; the segment is the
+  // whole sequence when it fits, else the most SEQ_TC-step passes that do
+  const bool stage_wx = (reinterpret_cast<uintptr_t>(wx) & 15) == 0 &&
+                        bytes(0, true) <= SEQ_SMEM_CAP / 2;
+  const int t_pad = (T + SEQ_TC - 1) / SEQ_TC * SEQ_TC;
+  int ts = t_pad;
+  while (ts > SEQ_TC && bytes(ts, stage_wx) > SEQ_SMEM_CAP) ts -= SEQ_TC;
+  if (bytes(ts, stage_wx) > SEQ_SMEM_CAP)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = bytes(ts, stage_wx);
+  const int g32 = (4 * H + 31) / 32 * 32;
+  const int threads = g32 * (g32 < 256 ? 256 / g32 : 1);
+  const auto kernel = H <= 8    ? lstm_sequence_kernel<8>
+                      : H <= 16 ? lstm_sequence_kernel<16>
+                      : H <= 32 ? lstm_sequence_kernel<32>
+                                : lstm_sequence_kernel<0>;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  kernel<<<B, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(xs), static_cast<const float*>(wx),
+      static_cast<const float*>(wh), static_cast<const float*>(b),
+      static_cast<float*>(h_out), static_cast<float*>(c_out),
+      static_cast<float*>(hs), T, B, I, H, ts, stage_wx);
   return static_cast<int>(cudaGetLastError());
 }

@@ -4,8 +4,10 @@ version.
 Port of the Pallas TPU kernel `flash_attention`
 (src/repro/kernels/flash_attention.py): GQA, end-aligned queries, causal
 and sliding-window masks, tanh softcap, float32 sums, and 0 for a row with
-no live key. The CUDA source, `csrc/flash_attention.cu`, says what bounds
-it on an H100 and how its design answers that. Unlike the Pallas kernel it
+no live key. bf16 runs on the tensor cores (`mma.sync`), float32 on the
+CUDA cores, to keep the float32 tolerance of 2e-5. The CUDA source,
+`csrc/flash_attention.cu`, says what bounds it on an H100 and how its
+design answers that. Unlike the Pallas kernel it
 takes ragged lengths: nothing has to divide a tile, so `block_q` and
 `block_k` are accepted for the signature and not used.
 

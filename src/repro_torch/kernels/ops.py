@@ -9,12 +9,13 @@ from __future__ import annotations
 
 from repro_torch.kernels import ref
 from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.kernels.lstm_cell import lstm_cell
+from repro_torch.kernels.lstm_cell import lstm_cell, lstm_sequence
 from repro_torch.kernels.mlstm_chunk import mlstm_chunk
 from repro_torch.kernels.ssm_scan import ssm_scan
 
-__all__ = ["attention", "lstm_step", "ssm", "mlstm", "flash_attention",
-           "lstm_cell", "ssm_scan", "mlstm_chunk"]
+__all__ = ["attention", "lstm_step", "lstm_layer", "ssm", "mlstm",
+           "flash_attention", "lstm_cell", "lstm_sequence", "ssm_scan",
+           "mlstm_chunk"]
 
 
 def attention(q, k, v, *, causal=True, window=None, softcap=None,
@@ -33,6 +34,13 @@ def attention(q, k, v, *, causal=True, window=None, softcap=None,
 def lstm_step(x, h, c, wx, wh, b):
     """wx: (I, 4, H); wh: (H, 4, H); b: (4, H)."""
     return lstm_cell(x, h, c, wx, wh, b)
+
+
+def lstm_layer(xs, wx, wh, b, *, return_sequence=False):
+    """One LSTM layer over a whole (T, B, I) sequence from h = c = 0: one
+    kernel launch on the card, the scanned step on the CPU. Returns (h_T,
+    c_T, the (T, B, H) hidden sequence or None)."""
+    return lstm_sequence(xs, wx, wh, b, return_sequence=return_sequence)
 
 
 def ssm(x, dt, a, b, c, d, *, chunk=256, block_h=8):

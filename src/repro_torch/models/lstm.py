@@ -1,9 +1,10 @@
 """The paper's ICU LSTM workloads (Edge AIBench, Table IV).
 
 LSTM classifier over clinical time series: (B, T, features) -> class
-logits. The per-step cell is the CUDA kernel behind `kernels.ops.lstm_step`,
-called once per timestep from a Python loop over T — the exact compute the
-paper's allocator places on a tier.
+logits. Each layer is one call of `kernels.ops.lstm_layer`, which on the
+card runs the whole sequence in one CUDA launch (the reference scans its
+per-step cell over T) — the exact compute the paper's allocator places on
+a tier.
 """
 from __future__ import annotations
 
@@ -49,20 +50,11 @@ class ICULSTM(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x: (B, T, input_dim) -> logits (B, num_classes)."""
-        bsz = x.shape[0]
-        h_seq = x
+        seq = x.transpose(0, 1).contiguous()        # (T, B, features)
         for li, layer in enumerate(self.layers):
-            # (T, B, features), contiguous, so each step's slice is too
-            steps = h_seq.transpose(0, 1).contiguous()
-            h = x.new_zeros((bsz, self.cfg.hidden))
-            c = x.new_zeros((bsz, self.cfg.hidden))
-            hs = []
-            for xt in steps:
-                h, c = ops.lstm_step(xt, h, c, layer["wx"], layer["wh"],
-                                     layer["b"])
-                hs.append(h)
-            if li + 1 < len(self.layers):
-                h_seq = torch.stack(hs, dim=1)
+            h, _, seq = ops.lstm_layer(
+                seq, layer["wx"], layer["wh"], layer["b"],
+                return_sequence=li + 1 < len(self.layers))
         return h @ self.head + self.head_b
 
     def loss(self, batch) -> torch.Tensor:

@@ -1,5 +1,6 @@
-"""Tests that need the card: the CUDA kernels (lstm_cell, flash_attention,
-ssm_scan, mlstm_chunk) against their plain versions, the reduced zamba2
+"""Tests that need the card: the CUDA kernels (lstm_cell, lstm_sequence,
+flash_attention, ssm_scan, mlstm_chunk) against their plain versions, the
+bf16 flash kernel against scaled_dot_product_attention, the reduced zamba2
 and xlstm models on CUDA against the same models on the CPU, and the
 device search on CUDA against the same search on the CPU.
 Marked `cuda`; each skips with a reason where torch sees no CUDA device.
@@ -17,7 +18,9 @@ from repro_torch.core.tiers import CC, ED, ES
 from repro_torch.configs import get_config
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_plain)
-from repro_torch.kernels.lstm_cell import lstm_cell, lstm_cell_plain
+from repro_torch.kernels.lstm_cell import (lstm_cell, lstm_cell_plain,
+                                           lstm_sequence,
+                                           lstm_sequence_plain)
 from repro_torch.kernels.mlstm_chunk import mlstm_chunk, mlstm_chunk_plain
 from repro_torch.kernels.ssm_scan import ssm_scan, ssm_scan_plain
 from repro_torch.models import build_model
@@ -55,6 +58,30 @@ def test_lstm_cell_kernel_matches_plain(cuda, shape):
     torch.testing.assert_close(c_k, c_p, atol=1e-5, rtol=0)
 
 
+@pytest.mark.parametrize("t_len", [1, 48, 130])
+@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_lstm_sequence_kernel_matches_plain(cuda, shape, t_len):
+    """A whole layer in one launch against the scanned plain cell: h_T,
+    c_T and the hidden sequence at lstm_cell's 1e-5."""
+    b, i, h = shape
+    g = torch.Generator().manual_seed(b * 1000 + i + h + t_len)
+    s = 1.0 / np.sqrt(i + h)
+    args = [torch.randn(t_len, b, i, generator=g),
+            torch.randn(i, 4, h, generator=g) * s,
+            torch.randn(h, 4, h, generator=g) * s,
+            torch.randn(4, h, generator=g) * 0.1]
+    args = [a.to(cuda) for a in args]
+    before = lstm_sequence.launches
+    h_k, c_k, hs_k = lstm_sequence(*args, return_sequence=True)
+    torch.cuda.synchronize()
+    assert lstm_sequence.launches == before + 1
+    h_p, c_p, hs_p = lstm_sequence_plain(*args, return_sequence=True)
+    assert hs_k.shape == (t_len, b, h)
+    torch.testing.assert_close(h_k, h_p, atol=1e-5, rtol=0)
+    torch.testing.assert_close(c_k, c_p, atol=1e-5, rtol=0)
+    torch.testing.assert_close(hs_k, hs_p, atol=1e-5, rtol=0)
+
+
 @pytest.mark.parametrize("fleet", [(1, 1), (2, 3)], ids=["1x1", "2x3"])
 @pytest.mark.parametrize("objective", ["weighted", "unweighted", "last"])
 def test_device_search_cuda_matches_cpu(cuda, objective, fleet):
@@ -78,8 +105,11 @@ def test_device_search_cuda_matches_cpu(cuda, objective, fleet):
     np.testing.assert_array_equal(v_gpu, v_cpu)
 
 
-# tests/test_kernels.py::ATTN_CASES, then zamba2's prefill shape and
-# ragged cases: b, hq, hkv, lq, lk, d, causal, window, softcap
+# tests/test_kernels.py::ATTN_CASES, then zamba2's prefill shape, ragged
+# cases, head dims that are not multiples of 16 (the bf16 kernel pads them
+# with zero columns), a decode-like single query over 512 keys, and GQA, a
+# window, softcap and ragged L together: b, hq, hkv, lq, lk, d, causal,
+# window, softcap
 FLASH_CASES = [
     (2, 4, 2, 256, 256, 64, True, None, None),
     (1, 8, 1, 128, 128, 128, True, None, 50.0),
@@ -92,6 +122,10 @@ FLASH_CASES = [
     (1, 4, 2, 1, 300, 64, True, None, None),
     (2, 4, 2, 100, 100, 80, True, 33, None),
     (1, 8, 1, 64, 64, 256, False, None, 50.0),
+    (2, 4, 2, 200, 200, 40, True, None, None),
+    (1, 4, 4, 130, 130, 72, False, None, None),
+    (1, 32, 32, 1, 512, 80, True, None, None),
+    (2, 32, 4, 300, 300, 80, True, 64, 30.0),
 ]
 
 
@@ -114,6 +148,21 @@ def test_flash_attention_kernel_matches_plain(cuda, case, dtype):
     torch.testing.assert_close(out.float(),
                                flash_attention_plain(q, k, v, **kw).float(),
                                atol=tol, rtol=tol)
+
+
+def test_flash_attention_bf16_matches_sdpa(cuda):
+    """The bf16 tensor-core kernel against PyTorch's own causal attention
+    at zamba2's prefill shape, at the bf16 tolerance."""
+    g = torch.Generator().manual_seed(7)
+    q, k, v = (torch.randn(4, 32, 512, 80, generator=g).to(cuda,
+                                                          torch.bfloat16)
+               for _ in range(3))
+    out = flash_attention(q, k, v, causal=True)
+    want = torch.nn.functional.scaled_dot_product_attention(q, k, v,
+                                                            is_causal=True)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), want.float(), atol=2e-2,
+                               rtol=2e-2)
 
 
 # tests/test_kernels.py::SSM_CASES (b, l, h, p, n), zamba2's prefill, then

@@ -1,7 +1,8 @@
-"""The port's lstm_cell on the CPU: its plain version against the JAX
-reference (the Pallas kernel in interpret mode and the jnp oracle), and
-the wrapper's checks. The CUDA kernel itself is held against the plain
-version on the card (tests/test_torch_cuda.py, chip_smoke.py)."""
+"""The port's lstm_cell and lstm_sequence on the CPU: their plain versions
+against the JAX reference (the Pallas kernel in interpret mode, stepped
+and scanned, and the jnp oracle), and the wrappers' checks. The CUDA
+kernels themselves are held against the plain versions on the card
+(tests/test_torch_cuda.py, chip_smoke.py)."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -12,9 +13,14 @@ from repro.kernels import ref as jax_ref
 from repro.kernels.lstm_cell import lstm_cell as pallas_lstm_cell
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref
-from repro_torch.kernels.lstm_cell import lstm_cell, lstm_cell_plain
+from repro_torch.kernels.lstm_cell import (lstm_cell, lstm_cell_plain,
+                                           lstm_sequence,
+                                           lstm_sequence_plain)
 
-SHAPES = [(4, 76, 16), (8, 17, 8)]      # (B, I, H)
+# (B, I, H): the first two test shapes, then the phenotype workload at the
+# execute and calibrate batches
+SHAPES = [(4, 76, 16), (8, 17, 8), (8, 76, 32), (16, 76, 32)]
+SEQ_LENS = [1, 5, 48]
 ATOL = 1e-5
 
 
@@ -31,6 +37,21 @@ def _inputs(b, i, h, seed=0):
 
 def _torch(args):
     return [torch.from_numpy(a) for a in args]
+
+
+def _seq_inputs(b, i, h, t_len, seed=0):
+    """xs (T, B, I) and one layer's weights, drawn as `_inputs` draws
+    them."""
+    rng = np.random.default_rng(seed)
+    s = 1.0 / np.sqrt(i + h)
+    return (rng.standard_normal((t_len, b, i)).astype(np.float32),
+            (rng.standard_normal((i, 4, h)) * s).astype(np.float32),
+            (rng.standard_normal((h, 4, h)) * s).astype(np.float32),
+            (rng.standard_normal((4, h)) * 0.1).astype(np.float32))
+
+
+def _ids(shape):
+    return "x".join(map(str, shape))
 
 
 @pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "x".join(map(str, s)))
@@ -94,6 +115,89 @@ def test_wrapper_rejects_non_contiguous():
     args[0] = torch.zeros(76, 4).t()
     with pytest.raises(ValueError, match="contiguous"):
         lstm_cell(*args)
+
+
+@pytest.mark.parametrize("t_len", SEQ_LENS)
+@pytest.mark.parametrize("shape", SHAPES, ids=_ids)
+def test_sequence_plain_is_a_scan_of_the_plain_cell(shape, t_len):
+    """lstm_sequence_plain is lstm_cell_plain scanned from h = c = 0, bit
+    for bit, so the port's CPU numbers do not move."""
+    xs, wx, wh, b = _torch(_seq_inputs(*shape, t_len, seed=3))
+    h = c = torch.zeros(shape[0], shape[2])
+    hs = []
+    for xt in xs:
+        h, c = lstm_cell_plain(xt, h, c, wx, wh, b)
+        hs.append(h)
+    h_s, c_s, hs_s = lstm_sequence_plain(xs, wx, wh, b, return_sequence=True)
+    assert torch.equal(h_s, h) and torch.equal(c_s, c)
+    assert torch.equal(hs_s, torch.stack(hs))
+
+
+@pytest.mark.parametrize("t_len", SEQ_LENS)
+@pytest.mark.parametrize("shape", SHAPES, ids=_ids)
+def test_sequence_plain_matches_pallas_interpret_scan(shape, t_len):
+    """Against the reference's Pallas cell in interpret mode, scanned over
+    T as the reference's ICULSTM.forward scans it: h_T, c_T and every
+    step's h within the cell's 1e-5."""
+    xs, wx, wh, b = _seq_inputs(*shape, t_len, seed=4)
+    h = c = jnp.zeros((shape[0], shape[2]), jnp.float32)
+    hs = []
+    for xt in xs:
+        h, c = pallas_lstm_cell(jnp.asarray(xt), h, c, jnp.asarray(wx),
+                                jnp.asarray(wh), jnp.asarray(b),
+                                interpret=True)
+        hs.append(np.asarray(h))
+    h_p, c_p, hs_p = lstm_sequence_plain(*_torch((xs, wx, wh, b)),
+                                         return_sequence=True)
+    np.testing.assert_allclose(h_p.numpy(), np.asarray(h), atol=ATOL)
+    np.testing.assert_allclose(c_p.numpy(), np.asarray(c), atol=ATOL)
+    np.testing.assert_allclose(hs_p.numpy(), np.stack(hs), atol=ATOL)
+
+
+@pytest.mark.parametrize("return_sequence", [False, True])
+def test_lstm_sequence_on_cpu_is_the_plain_version(return_sequence):
+    """lstm_sequence and ops.lstm_layer on CPU tensors take the plain
+    version and count no kernel launch."""
+    args = _torch(_seq_inputs(8, 76, 32, 48, seed=5))
+    before = lstm_sequence.launches
+    want = lstm_sequence_plain(*args, return_sequence=return_sequence)
+    for got in (lstm_sequence(*args, return_sequence=return_sequence),
+                ops.lstm_layer(*args, return_sequence=return_sequence)):
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        if return_sequence:
+            assert got[2].shape == (48, 8, 32)
+            assert torch.equal(got[2], want[2])
+        else:
+            assert got[2] is None
+    assert lstm_sequence.launches == before
+
+
+@pytest.mark.parametrize("which,shape,msg", [
+    ("xs", (48, 4), "must have 3 dims"),
+    ("wx", (76, 4, 8), "wx shape"),
+    ("wh", (16, 4, 8), "wh shape"),
+    ("b", (4, 8), "b shape"),
+], ids=["xs", "wx", "wh", "b"])
+def test_sequence_wrapper_rejects_bad_shapes(which, shape, msg):
+    args = dict(zip(("xs", "wx", "wh", "b"),
+                    _torch(_seq_inputs(4, 76, 16, 5))))
+    args[which] = torch.zeros(shape)
+    with pytest.raises(ValueError, match=msg):
+        lstm_sequence(**args)
+
+
+def test_sequence_wrapper_rejects_non_float32():
+    args = _torch(_seq_inputs(4, 76, 16, 5))
+    args[2] = args[2].to(torch.bfloat16)
+    with pytest.raises(TypeError, match="float32"):
+        lstm_sequence(*args)
+
+
+def test_sequence_wrapper_rejects_non_contiguous():
+    args = _torch(_seq_inputs(4, 76, 16, 5))
+    args[0] = torch.zeros(4, 5, 76).transpose(0, 1)
+    with pytest.raises(ValueError, match="contiguous"):
+        lstm_sequence(*args)
 
 
 def test_library_path_is_keyed_by_sources_and_flags(monkeypatch):
