@@ -25,8 +25,11 @@ Phases, each of which raises on failure:
         at full width and depth in bf16: 4 prompts of 512 tokens, 32
         greedy steps (flash_attention, ssm_scan);
      c. the same for xlstm-350m (mlstm_chunk);
-  7. timings with CUDA events, each printed beside the card's name and
-     power limit;
+  7. timings with CUDA events (and by CUDA-graph replay, the device time
+     alone, for each kernel at its main-path shape), each printed beside
+     the card's name and power limit, and for ssm_scan and
+     mlstm_chunk the registers and spills `nvcc -Xptxas -v` reported and
+     the tensor-core (HMMA) instructions in each kernel's SASS;
   8. one more run of each main path under torch.profiler: device busy
      share and the kernels that take the device's time.
 The second-to-last line is a JSON object with one entry per kernel; the
@@ -468,6 +471,41 @@ def graph_ms(torch, fn, per_graph=100, replays=20):
         for _ in range(per_graph):
             fn()
     return event_ms(torch, graph.replay, replays, warmup=2) / per_graph
+
+
+def kernel_report(build, name, kernels):
+    """One line per compiled kernel of `csrc/<name>.cu` named in `kernels`:
+    its registers, spills and static shared memory as `nvcc -Xptxas -v`
+    printed them when it was built (the build's log), and the number of
+    tensor-core instructions (HMMA) in its SASS (`cuobjdump -sass` of the
+    built library)."""
+    import re
+    info, cur = {}, None
+    for line in build.log_path(name).read_text().splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            cur = m.group(1)
+            info[cur] = []
+        elif cur and ("spill" in line or "Used" in line):
+            info[cur].append(line.split(":", 1)[-1].strip())
+    cuobjdump = Path(build._nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass",
+                           str(build.library_path(name))],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    hmma = {}
+    for part in sass.split("Function : ")[1:]:
+        hmma[part.split()[0]] = part.count("HMMA")
+    lines = []
+    for mangled, props in info.items():
+        label = next((k for k in kernels if k in mangled), None)
+        if label is None:
+            continue
+        width = re.search(r"ILi(\d+)E", mangled)
+        label += f"<{width.group(1)}>" if width else ""
+        lines.append(f"{name}.cu {label}: {'; '.join(props)}; "
+                     f"{hmma.get(mangled, 0)} HMMA instructions in SASS")
+    return lines
 
 
 def leaves(tree):
@@ -920,33 +958,61 @@ def main():
           f"{flash_bound(ZAMBA_ATTN, 4, F32_FLOPS)[0]:.6f} ms / operations "
           f"{flash_bound(ZAMBA_ATTN, 4, F32_FLOPS)[1]:.6f} ms")
 
+    # ssm_scan and mlstm_chunk: the bf16 tensor-core kernels at the main
+    # paths' shapes (events; CUDA-graph replay, the device time alone), the
+    # float32 CUDA-core kernels at the same shapes, and what the compiler
+    # made of them
+    for name, kinds in (("ssm_scan", ("ssm_bf16_kernel", "ssm_f32_kernel")),
+                        ("mlstm_chunk", ("mlstm_bf16_kernel",
+                                         "mlstm_f32_kernel"))):
+        for line in kernel_report(build, name, kinds):
+            print(f"[{card}] {line}")
+    # dynamic shared memory the bf16 launches request (bf16_smem_bytes in
+    # each source): ssm_scan at N = 64, mlstm_chunk at D = 512
+    ssm_smem = 2 * (2 * 64 * 72 + 6 * 64 * 72) + 4 * 2 * 64
+    mlstm_smem = 2 * (2 * 512 + 8 * 64) * 72 + 4 * (2 * 512 + 8 * 64 + 4)
+    print(f"[{card}] dynamic shared memory per block: ssm_bf16_kernel<64> "
+          f"{ssm_smem} B (4 warps), mlstm_bf16_kernel {mlstm_smem} B (8 "
+          f"warps)")
+
     args = ssm_inputs(torch, ZAMBA_SSM, torch.bfloat16, cuda, seed=201)
-    st = {"ms": event_ms(torch, lambda: ssm_scan(*args), 20, warmup=3),
+    st = {"ms": event_ms(torch, lambda: ssm_scan(*args), 50, warmup=5),
+          "graph_ms": graph_ms(torch, lambda: ssm_scan(*args), per_graph=20),
           "plain_ms": event_ms(torch, lambda: ssm_scan_plain(*args), 3,
                                warmup=1),
           "library_ms": None}
     st["bytes_ms"], st["ops_ms"] = ssm_bound(ZAMBA_SSM, 2, BF16_FLOPS)
-    print(f"[{card}] ssm_scan {ZAMBA_SSM} x/b/c bf16: kernel "
-          f"{st['ms']:.5f} ms, plain {st['plain_ms']:.5f} ms, library none "
-          f"(no single PyTorch call computes it), bound bytes "
-          f"{st['bytes_ms']:.6f} ms / operations {st['ops_ms']:.6f} ms "
-          f"(at the f32 CUDA-core rate the operations would take "
-          f"{ssm_bound(ZAMBA_SSM, 2, F32_FLOPS)[1]:.6f} ms), main-path "
-          f"launches {ssm_launches}")
+    args32 = [t.float() for t in args]
+    ssm_f32_ms = event_ms(torch, lambda: ssm_scan(*args32), 20, warmup=3)
+    print(f"[{card}] ssm_scan {ZAMBA_SSM} x/b/c bf16 (tensor cores): kernel "
+          f"{st['ms']:.5f} ms (CUDA graph {st['graph_ms']:.5f} ms), "
+          f"float32 (CUDA cores) {ssm_f32_ms:.5f} ms, plain "
+          f"{st['plain_ms']:.5f} ms, library none (no single PyTorch call "
+          f"computes it), bound bytes {st['bytes_ms']:.6f} ms / operations "
+          f"{st['ops_ms']:.6f} ms (at the f32 CUDA-core rate the operations "
+          f"would take {ssm_bound(ZAMBA_SSM, 2, F32_FLOPS)[1]:.6f} ms), "
+          f"kernel / bound {st['ms'] / max(st['bytes_ms'], st['ops_ms']):.2f}"
+          f", main-path launches {ssm_launches}")
 
     args = mlstm_inputs(torch, XLSTM_MLSTM, torch.bfloat16, cuda, seed=202)
-    mt = {"ms": event_ms(torch, lambda: mlstm_chunk(*args), 20, warmup=3),
+    mt = {"ms": event_ms(torch, lambda: mlstm_chunk(*args), 50, warmup=5),
+          "graph_ms": graph_ms(torch, lambda: mlstm_chunk(*args),
+                               per_graph=20),
           "plain_ms": event_ms(torch, lambda: mlstm_chunk_plain(*args), 5,
                                warmup=2),
           "library_ms": None}
     mt["bytes_ms"], mt["ops_ms"] = mlstm_bound(XLSTM_MLSTM, 2, BF16_FLOPS)
-    print(f"[{card}] mlstm_chunk {XLSTM_MLSTM} q/k/v bf16: kernel "
-          f"{mt['ms']:.5f} ms, plain {mt['plain_ms']:.5f} ms, library none "
-          f"(no single PyTorch call computes it), bound bytes "
-          f"{mt['bytes_ms']:.6f} ms / operations {mt['ops_ms']:.6f} ms "
-          f"(at the f32 CUDA-core rate the operations would take "
-          f"{mlstm_bound(XLSTM_MLSTM, 2, F32_FLOPS)[1]:.6f} ms), main-path "
-          f"launches {mlstm_launches}")
+    args32 = [t.float() for t in args]
+    mlstm_f32_ms = event_ms(torch, lambda: mlstm_chunk(*args32), 20, warmup=3)
+    print(f"[{card}] mlstm_chunk {XLSTM_MLSTM} q/k/v bf16 (tensor cores): "
+          f"kernel {mt['ms']:.5f} ms (CUDA graph {mt['graph_ms']:.5f} ms), "
+          f"float32 (CUDA cores) {mlstm_f32_ms:.5f} ms, plain "
+          f"{mt['plain_ms']:.5f} ms, library none (no single PyTorch call "
+          f"computes it), bound bytes {mt['bytes_ms']:.6f} ms / operations "
+          f"{mt['ops_ms']:.6f} ms (at the f32 CUDA-core rate the operations "
+          f"would take {mlstm_bound(XLSTM_MLSTM, 2, F32_FLOPS)[1]:.6f} ms), "
+          f"kernel / bound {mt['ms'] / max(mt['bytes_ms'], mt['ops_ms']):.2f}"
+          f", main-path launches {mlstm_launches}")
 
     def mean_over_mix(table, key):
         return sum(table[s][key] * c for s, c in mix.items()) \

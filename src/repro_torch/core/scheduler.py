@@ -36,6 +36,7 @@ from repro_torch.core.simulator import (MACHINES, JobSpec, Reservation,
                                         Schedule, ScheduleState,
                                         machine_free_times, simulate)
 from repro_torch.core.tiers import CC, ED, ES
+from repro_torch.device import resolve_device
 
 # above this many jobs, `search` on a CUDA device takes the device search
 DEVICE_SEARCH_THRESHOLD = 64
@@ -232,11 +233,12 @@ def search(jobs: Sequence[JobSpec],
     neighbourhood rounds, `scheduler_torch.tabu_search_batched`) for large
     ones. Both return an exact C1-C5 Schedule.
 
-    device: where the device search runs (default "cuda" when torch sees
-    a CUDA device, else the CPU). device_threshold: job count above which
-    the device search is taken. Default (None): DEVICE_SEARCH_THRESHOLD
-    when the device is CUDA, never on the CPU — mirroring the reference's
-    accelerator-only default.
+    device: where the device search runs (default "cuda"; raises
+    RuntimeError without a CUDA device unless device="cpu", as every
+    entry point of the port does). device_threshold: job count above
+    which the device search is taken. Default (None):
+    DEVICE_SEARCH_THRESHOLD when the device is CUDA, never on the CPU —
+    mirroring the reference's accelerator-only default.
 
     machines_per_tier / busy_until (DESIGN.md §7), frozen (DESIGN.md §9:
     immovable background jobs, initial required) and reserved
@@ -247,9 +249,7 @@ def search(jobs: Sequence[JobSpec],
     needs the "pass" regime, which is not ported yet (NotImplementedError).
     """
     n = len(jobs)
-    if device is None:
-        device = "cuda" if torch.cuda.is_available() else "cpu"
-    device = torch.device(device)
+    device = resolve_device(device)
     if device_threshold is None:
         use_device = n > DEVICE_SEARCH_THRESHOLD and device.type == "cuda"
     else:
@@ -318,8 +318,9 @@ def strategy_table(jobs: Sequence[JobSpec],
                    ) -> Dict[str, Schedule]:
     """The paper's Table VII comparison set + our extras. "ours" goes
     through the size-dispatched `search`, so fleet-scale tables use the
-    device search. machines_per_tier (from TierSpec.machines) sizes the
-    shared tiers for every strategy."""
+    device search; `device` is passed to it (default "cuda"; raises
+    without a CUDA device unless device="cpu"). machines_per_tier (from
+    TierSpec.machines) sizes the shared tiers for every strategy."""
     mpt = machines_per_tier
     return {
         "ours (algorithm 2)": search(jobs, device_threshold=device_threshold,

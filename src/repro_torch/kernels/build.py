@@ -4,8 +4,10 @@ Each `csrc/<name>.cu` is compiled by `nvcc` into a shared library with a
 plain C interface, loaded with ctypes. Libraries go to `_build/` beside this
 file (listed in .gitignore), named by a hash of the sources and the flags,
 so a changed source is rebuilt and an unchanged one is built once per
-checkout. Nothing here runs at import time: this module is imported on
-machines with no CUDA toolkit, where only the plain versions run.
+checkout. The compiler's output (`-Xptxas -v`: each kernel's registers and
+spills) is kept beside each library, in `log_path(name)`. Nothing here runs
+at import time: this module is imported on machines with no CUDA toolkit,
+where only the plain versions run.
 """
 from __future__ import annotations
 
@@ -21,7 +23,7 @@ from typing import Dict
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
 def _nvcc() -> str:
@@ -45,6 +47,11 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
+def log_path(name: str) -> Path:
+    """The compiler's output from building `library_path(name)`."""
+    return library_path(name).with_suffix(".log")
+
+
 def build(*names: str) -> Dict[str, Path]:
     """Compile every named source that is not built yet, all `nvcc`
     processes started together, and wait for them. Raises RuntimeError
@@ -66,6 +73,7 @@ def build(*names: str) -> Dict[str, Path]:
         if proc.returncode != 0:
             failed.append(f"nvcc {name}.cu exited {proc.returncode}:\n{log}")
             continue
+        log_path(name).write_text(log)
         os.replace(tmp, lib)         # atomic: concurrent builds agree
     if failed:
         raise RuntimeError("\n".join(failed))

@@ -6,9 +6,10 @@ mlstm_chunk.py): q, k, v (B, L, H, D) and the pre-activation gates
 (B, L, H) from a zero state; y in q's dtype and the final (C, n, m) in
 float32. The CUDA source, `csrc/mlstm_chunk.cu`, says what bounds it on an
 H100 and how its design answers that: a block owns 64 value columns of
-one head's D×D memory and walks the chunks in order, and the last chunk
-may be ragged, so any L and H work and `block_h` is accepted for the
-signature and not used.
+one head's D×D memory and walks the chunks in order, bf16 inputs run its
+products on the tensor cores and float32 inputs on the CUDA cores, and
+the last chunk may be ragged, so any L and H work and `block_h` is
+accepted for the signature and not used.
 
 `mlstm_chunk` takes the kernel for CUDA tensors and the plain PyTorch
 version for CPU tensors; on the card it launches the kernel or raises. It

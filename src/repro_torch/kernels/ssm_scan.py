@@ -4,10 +4,11 @@ plain version.
 Port of the Pallas TPU kernel `ssm_scan` (src/repro/kernels/ssm_scan.py):
 one B/C group shared by all heads, a float32 state from zero, y in x's
 dtype and the final state in float32. The CUDA source, `csrc/ssm_scan.cu`,
-says what bounds it on an H100 and how its design answers that: it runs
-the recurrence step by step, which is the same function as the Pallas
-kernel's chunked form, and takes any L and H, so `chunk` and `block_h`
-are accepted for the signature and not used.
+says what bounds it on an H100 and how its design answers that: bf16
+inputs take the Pallas kernel's chunked form on the tensor cores, in
+chunks of 64 steps; float32 inputs take the recurrence step by step on
+the CUDA cores. Both take any L, H and P, so `chunk` and `block_h` are
+accepted for the signature and not used.
 
 `ssm_scan` takes the kernel for CUDA tensors and the plain PyTorch version
 for CPU tensors; on the card it launches the kernel or raises. It counts

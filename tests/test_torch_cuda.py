@@ -1,8 +1,10 @@
 """Tests that need the card: the CUDA kernels (lstm_cell, lstm_sequence,
 flash_attention, ssm_scan, mlstm_chunk) against their plain versions, the
-bf16 flash kernel against scaled_dot_product_attention, the reduced zamba2
-and xlstm models on CUDA against the same models on the CPU, and the
-device search on CUDA against the same search on the CPU.
+bf16 (tensor-core) and float32 (CUDA-core) kernels of ssm_scan and
+mlstm_chunk against each other, the bf16 flash kernel against
+scaled_dot_product_attention, the reduced zamba2 and xlstm models on CUDA
+against the same models on the CPU, and the device search on CUDA against
+the same search on the CPU.
 Marked `cuda`; each skips with a reason where torch sees no CUDA device.
 Run them on a GPU machine with
 
@@ -167,9 +169,11 @@ def test_flash_attention_bf16_matches_sdpa(cuda):
 
 # tests/test_kernels.py::SSM_CASES (b, l, h, p, n), zamba2's prefill, then
 # ragged shapes (H * P not a multiple of a block's 64 rows, N not a power
-# of two, L not a multiple of the 32 staged steps)
+# of two, L not a multiple of the 32 staged steps), then a state carried
+# across 32 chunks of 64 steps
 SSM_SHAPES = [(2, 64, 2, 8, 16), (2, 128, 4, 16, 16), (1, 256, 8, 32, 64),
-              (4, 512, 80, 64, 64), (2, 37, 3, 24, 20), (1, 70, 5, 80, 128)]
+              (4, 512, 80, 64, 64), (2, 37, 3, 24, 20), (1, 70, 5, 80, 128),
+              (1, 2048, 4, 64, 64)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
@@ -177,15 +181,7 @@ SSM_SHAPES = [(2, 64, 2, 8, 16), (2, 128, 4, 16, 16), (1, 256, 8, 32, 64),
 @pytest.mark.parametrize("shape", SSM_SHAPES,
                          ids=lambda s: "x".join(map(str, s)))
 def test_ssm_scan_kernel_matches_plain(cuda, shape, dtype):
-    b, l, h, p, n = shape
-    g = torch.Generator().manual_seed(sum(shape))
-    x = torch.randn(b, l, h, p, generator=g).to(cuda, dtype)
-    dt = torch.nn.functional.softplus(
-        torch.randn(b, l, h, generator=g)).to(cuda)
-    a = -torch.exp(torch.randn(h, generator=g) * 0.5).to(cuda)
-    bm = torch.randn(b, l, n, generator=g).to(cuda, dtype)
-    cm = torch.randn(b, l, n, generator=g).to(cuda, dtype)
-    d = torch.randn(h, generator=g).to(cuda)
+    x, dt, a, bm, cm, d = _ssm_inputs(shape, dtype, cuda)
     before = ssm_scan.launches
     y, hf = ssm_scan(x, dt, a, bm, cm, d)
     torch.cuda.synchronize()
@@ -195,6 +191,35 @@ def test_ssm_scan_kernel_matches_plain(cuda, shape, dtype):
     tol = 3e-4 if dtype == torch.float32 else 2e-2
     torch.testing.assert_close(y.float(), y_p.float(), atol=tol, rtol=tol)
     torch.testing.assert_close(hf, h_p, atol=3e-4, rtol=3e-4)
+
+
+def _ssm_inputs(shape, dtype, device):
+    b, l, h, p, n = shape
+    g = torch.Generator().manual_seed(sum(shape))
+    x = torch.randn(b, l, h, p, generator=g).to(device, dtype)
+    dt = torch.nn.functional.softplus(
+        torch.randn(b, l, h, generator=g)).to(device)
+    a = -torch.exp(torch.randn(h, generator=g) * 0.5).to(device)
+    bm = torch.randn(b, l, n, generator=g).to(device, dtype)
+    cm = torch.randn(b, l, n, generator=g).to(device, dtype)
+    d = torch.randn(h, generator=g).to(device)
+    return x, dt, a, bm, cm, d
+
+
+@pytest.mark.parametrize("shape", [(4, 512, 80, 64, 64), (2, 37, 3, 24, 20),
+                                   (1, 70, 5, 80, 128), (1, 2048, 4, 64, 64)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_ssm_scan_bf16_and_f32_kernels_agree(cuda, shape):
+    """The tensor-core kernel (bf16) and the CUDA-core kernel (float32) on
+    the same bf16-valued inputs, within the bf16 bars: y 2e-2, the float32
+    state 3e-4."""
+    args = _ssm_inputs(shape, torch.bfloat16, cuda)
+    f32 = [t.float() for t in args]
+    y16, h16 = ssm_scan(*args)
+    y32, h32 = ssm_scan(*f32)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y16.float(), y32, atol=2e-2, rtol=2e-2)
+    torch.testing.assert_close(h16, h32, atol=3e-4, rtol=3e-4)
 
 
 def test_reduced_zamba2_cuda_matches_cpu(cuda):
@@ -228,7 +253,7 @@ def test_reduced_zamba2_cuda_matches_cpu(cuda):
 # of 64 cut short) and a head dim that is not a multiple of 64
 MLSTM_SHAPES = [(1, 64, 2, 64), (2, 128, 4, 32), (2, 256, 4, 16),
                 (2, 256, 2, 128), (4, 512, 4, 512), (1, 100, 2, 128),
-                (2, 300, 3, 512), (1, 70, 1, 80)]
+                (2, 300, 3, 512), (1, 70, 1, 80), (1, 1000, 2, 512)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
@@ -236,12 +261,7 @@ MLSTM_SHAPES = [(1, 64, 2, 64), (2, 128, 4, 32), (2, 256, 4, 16),
 @pytest.mark.parametrize("shape", MLSTM_SHAPES,
                          ids=lambda s: "x".join(map(str, s)))
 def test_mlstm_chunk_kernel_matches_plain(cuda, shape, dtype):
-    b, l, h, d = shape
-    g = torch.Generator().manual_seed(sum(shape))
-    q, k, v = (torch.randn(b, l, h, d, generator=g).to(cuda, dtype)
-               for _ in range(3))
-    ig = torch.randn(b, l, h, generator=g).to(cuda)
-    fg = (torch.randn(b, l, h, generator=g) + 2.0).to(cuda)
+    q, k, v, ig, fg = _mlstm_inputs(shape, dtype, cuda)
     before = mlstm_chunk.launches
     y, (c, n, m) = mlstm_chunk(q, k, v, ig, fg)
     torch.cuda.synchronize()
@@ -256,6 +276,33 @@ def test_mlstm_chunk_kernel_matches_plain(cuda, shape, dtype):
     torch.testing.assert_close(c, c_p, atol=5e-4, rtol=5e-3)
     torch.testing.assert_close(n, n_p, atol=5e-4, rtol=5e-3)
     torch.testing.assert_close(m, m_p, atol=1e-5, rtol=0)
+
+
+def _mlstm_inputs(shape, dtype, device):
+    b, l, h, d = shape
+    g = torch.Generator().manual_seed(sum(shape))
+    q, k, v = (torch.randn(b, l, h, d, generator=g).to(device, dtype)
+               for _ in range(3))
+    ig = torch.randn(b, l, h, generator=g).to(device)
+    fg = (torch.randn(b, l, h, generator=g) + 2.0).to(device)
+    return q, k, v, ig, fg
+
+
+@pytest.mark.parametrize("shape", [(4, 512, 4, 512), (1, 100, 2, 128),
+                                   (2, 300, 3, 512), (1, 1000, 2, 512)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_mlstm_chunk_bf16_and_f32_kernels_agree(cuda, shape):
+    """The tensor-core kernel (bf16) and the CUDA-core kernel (float32) on
+    the same bf16-valued inputs, within the bf16 bars: y 2e-2, C and n
+    5e-4 / 5e-3, m 1e-5."""
+    args = _mlstm_inputs(shape, torch.bfloat16, cuda)
+    y16, s16 = mlstm_chunk(*args)
+    y32, s32 = mlstm_chunk(*[t.float() for t in args])
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y16.float(), y32, atol=2e-2, rtol=2e-2)
+    for a, b in zip(s16[:2], s32[:2]):
+        torch.testing.assert_close(a, b, atol=5e-4, rtol=5e-3)
+    torch.testing.assert_close(s16[2], s32[2], atol=1e-5, rtol=0)
 
 
 def test_reduced_xlstm_cuda_matches_cpu(cuda):

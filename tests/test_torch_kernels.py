@@ -206,6 +206,7 @@ def test_library_path_is_keyed_by_sources_and_flags(monkeypatch):
     assert path.parent == build.BUILD_DIR
     assert path.name.startswith("liblstm_cell-") and path.suffix == ".so"
     assert build.library_path("lstm_cell") == path
+    assert build.log_path("lstm_cell") == path.with_suffix(".log")
     monkeypatch.setattr(build, "NVCC_FLAGS", build.NVCC_FLAGS + ("-G",))
     assert build.library_path("lstm_cell") != path
 

@@ -7,6 +7,8 @@ from a seed and handed to both packages. The CUDA kernel itself is held
 against the plain version on the card (tests/test_torch_cuda.py,
 chip_smoke.py). Tolerances of tests/test_kernels.py: 5e-4 absolute and
 5e-3 relative, m at 1e-5."""
+import functools
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -195,3 +197,170 @@ def test_wrapper_rejects_bad_inputs(change, msg):
 def test_wrapper_rejects_bad_dtypes(change, msg):
     with pytest.raises(TypeError, match=msg):
         mlstm_chunk(**_args(**change))
+
+
+# --- the bf16 tensor-core design of csrc/mlstm_chunk.cu, modelled on the CPU
+# The kernel walks chunks of 64 steps and runs its four products on
+# mma.m16n8k16 (bf16 operands, float32 sums). Its arithmetic, modelled
+# here in plain torch (float32 sums of exact bf16 products), is held
+# against a float64 sequential oracle at the bars the card holds the
+# kernel to: y 2e-2, C and n 5e-4 / 5e-3, m 1e-5. q, k and v are bf16 as
+# given; S, n_in and the update's operand k w_out / sqrt(D) go in as
+# bf16 hi + lo (two products each; n's update is the row sums of the
+# latter), and C is carried in shared memory as bf16 hi + lo (~16 bits),
+# so q C_in reads it as two operands: one bf16 rounding of S, the
+# update's operand or C misses a bar (the last test). The gates' scans,
+# n and m themselves, the row sums of S and the denominators stay
+# float32.
+TC_CHUNK = 64
+BF16_Y_TOL = 2e-2
+
+
+def _bf16(t):
+    """t rounded to bf16 once, kept in float32."""
+    return t.to(torch.bfloat16).to(torch.float32)
+
+
+def _split(t):
+    """t as the sum of its bf16 hi and lo parts, the two operands the
+    kernel feeds to two products."""
+    hi = _bf16(t)
+    return hi + _bf16(t - hi)
+
+
+def _tensor_core_model(q, k, v, ig, fg, *, once=()):
+    """q, k, v bf16-valued float32. Per chunk: q k^T from the exact
+    operands, 1/sqrt(D) applied to the float32 result; S = that times
+    exp(g_u - cm_t) [u <= t]; y = (S v + exp(m_in - cm_t) q C_in) / den
+    with den from S's float32 row sums and q . n_in; C <- carry C
+    + (k w_out / sqrt(D))^T v, and n <- carry n + the row sums of that
+    operand. S, the update's operand and n_in (in q . n_in) are split into
+    bf16 hi + lo, and C is carried as bf16 hi + lo; S, the update's
+    operand and C are rounded to bf16 once instead where named in `once`
+    ("s", "kw", "c"). Returns (y rounded to bf16, (C, n, m))."""
+    part = {key: _bf16 if key in once else _split
+            for key in ("s", "kw", "c")}
+    bsz, l, h, d = q.shape
+    scale = 1.0 / d ** 0.5
+    c = torch.zeros(bsz, h, d, d)
+    n = torch.zeros(bsz, h, d)
+    m = torch.full((bsz, h), ref.NEG_INF)
+    ys = []
+    for t0 in range(0, l, TC_CHUNK):
+        qc, kc, vc, ic, fc = (t[:, t0:t0 + TC_CHUNK]
+                              for t in (q, k, v, ig, fg))
+        tn = qc.shape[1]
+        causal = torch.tril(torch.ones(tn, tn, dtype=torch.bool))
+        b = torch.cumsum(torch.nn.functional.logsigmoid(fc), dim=1)
+        g = ic - b                                               # (B, T, H)
+        cm = torch.maximum(torch.cummax(g, dim=1).values, m[:, None])
+        w = torch.where(causal[None, :, :, None],
+                        torch.exp(g[:, None] - cm[:, :, None]), 0.0)
+        s = torch.einsum("bthd,buhd->btuh", qc, kc) * scale * w
+        inter = torch.exp(m[:, None] - cm)                       # (B, T, H)
+        num = (torch.einsum("btuh,buhe->bthe", part["s"](s), vc)
+               + torch.einsum("bthd,bhde->bthe", qc, c) * inter[..., None])
+        qn = torch.einsum("bthd,bhd->bth", qc, _split(n))
+        den = torch.maximum(torch.abs(s.sum(dim=2) + inter * qn),
+                            torch.exp(-(b + cm)))
+        ys.append(num / den[..., None])
+        cm_l = cm[:, -1]
+        kw = kc * scale * torch.exp(g - cm_l[:, None])[..., None]
+        carry = torch.exp(m - cm_l)
+        c = part["c"](c * carry[..., None, None]
+                      + torch.einsum("buhd,buhe->bhde", part["kw"](kw), vc))
+        n = n * carry[..., None] + part["kw"](kw).sum(dim=1)
+        m = b[:, -1] + cm_l
+    return _bf16(torch.cat(ys, dim=1)), (c, n, m)
+
+
+def _sequential_f64(q, k, v, ig, fg):
+    """The stabilised recurrence step by step in float64."""
+    q, k, v, ig, fg = (t.double() for t in (q, k, v, ig, fg))
+    bsz, l, h, d = q.shape
+    k = k / d ** 0.5
+    c = torch.zeros(bsz, h, d, d, dtype=torch.float64)
+    n = torch.zeros(bsz, h, d, dtype=torch.float64)
+    m = torch.full((bsz, h), ref.NEG_INF, dtype=torch.float64)
+    ys = []
+    for t in range(l):
+        log_f = torch.nn.functional.logsigmoid(fg[:, t])
+        m_new = torch.maximum(log_f + m, ig[:, t])
+        fdec = torch.exp(log_f + m - m_new)
+        iamp = torch.exp(ig[:, t] - m_new)
+        c = (c * fdec[..., None, None] + iamp[..., None, None]
+             * torch.einsum("bhd,bhe->bhde", k[:, t], v[:, t]))
+        n = n * fdec[..., None] + iamp[..., None] * k[:, t]
+        den = torch.maximum(
+            torch.abs(torch.einsum("bhd,bhd->bh", n, q[:, t])),
+            torch.exp(-m_new))
+        ys.append(torch.einsum("bhde,bhd->bhe", c, q[:, t]) / den[..., None])
+        m = m_new
+    return torch.stack(ys, dim=1), (c, n, m)
+
+
+@pytest.fixture
+def one_thread():
+    """The model and the float64 oracle are long chains of tensor ops: one
+    thread keeps each test process from contending with the other test
+    workers for the cores. Restored after the test."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@functools.lru_cache(maxsize=None)
+def _case(shape, seed):
+    """The bf16-valued inputs of a case and the float64 oracle's result,
+    computed once for the tests that share them."""
+    args = _bf16_inputs(shape, seed)
+    return args, _sequential_f64(*args)
+
+
+@functools.lru_cache(maxsize=None)
+def _model(shape, seed, once=()):
+    return _tensor_core_model(*_case(shape, seed)[0], once=once)
+
+
+def _bf16_inputs(shape, seed):
+    q, k, v, ig, fg = map(torch.from_numpy, _inputs(*shape, seed=seed))
+    return _bf16(q), _bf16(k), _bf16(v), ig, fg
+
+
+def _meets_bars(got, want):
+    (y, (c, n, m)), (y64, (c64, n64, m64)) = got, want
+    return (torch.allclose(y, y64.float(), atol=BF16_Y_TOL,
+                           rtol=BF16_Y_TOL)
+            and torch.allclose(c, c64.float(), atol=ATOL, rtol=RTOL)
+            and torch.allclose(n, n64.float(), atol=ATOL, rtol=RTOL)
+            and torch.allclose(m, m64.float(), atol=M_ATOL, rtol=0))
+
+
+# xlstm-350m's head shape (D = 512) at 2 of its heads over a 512-token
+# prompt, then tests/test_torch_cuda.py's ragged shapes
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("shape", [(1, 512, 2, 512), (1, 100, 2, 128),
+                                   (2, 300, 3, 512), (1, 70, 1, 80)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_tensor_core_model_meets_the_card_bars(shape, seed, one_thread):
+    y, (c, n, m) = _model(shape, seed)
+    y64, (c64, n64, m64) = _case(shape, seed)[1]
+    torch.testing.assert_close(y, y64.float(), atol=BF16_Y_TOL,
+                               rtol=BF16_Y_TOL)
+    for name, got, want in (("C", c, c64), ("n", n, n64)):
+        torch.testing.assert_close(got, want.float(), atol=ATOL, rtol=RTOL,
+                                   msg=lambda e, name=name: f"{name}: {e}")
+    torch.testing.assert_close(m, m64.float(), atol=M_ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("once", ["s", "kw", "c"])
+def test_one_rounding_of_a_float32_operand_misses_the_bars(once,
+                                                           one_thread):
+    """Why each float32 operand takes two bf16 parts: rounded once, S
+    (feeding y) misses y's bar and the update's operand or the carried C
+    misses C's, at xlstm-350m's head dim."""
+    shape, seed = (1, 512, 2, 512), 0
+    want = _case(shape, seed)[1]
+    assert _meets_bars(_model(shape, seed), want)
+    assert not _meets_bars(_model(shape, seed, once=(once,)), want)

@@ -180,3 +180,15 @@ def test_search_default_dispatch_stays_in_python_on_cpu():
     calls = scheduler_torch.tabu_search_batched.calls
     port_scheduler.search(jobs, device="cpu")
     assert scheduler_torch.tabu_search_batched.calls == calls
+
+
+@pytest.mark.parametrize("entry", ["search", "strategy_table"])
+def test_no_device_raises_without_a_card(entry):
+    """With no `device`, `search` and `strategy_table` take "cuda", as
+    every entry point of the port does, and raise where torch sees no
+    CUDA device rather than dropping to the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present, so the default device runs")
+    jobs = _int_jobs(port_sim, np.random.default_rng(4), N)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        getattr(port_scheduler, entry)(jobs, device_threshold=0)

@@ -6,6 +6,8 @@ seed and handed to both packages. The CUDA kernel itself is held against
 the plain version on the card (tests/test_torch_cuda.py,
 chip_smoke.py). Tolerance 3e-4, as tests/test_kernels.py holds the
 Pallas kernel."""
+import functools
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -147,3 +149,142 @@ def test_wrapper_rejects_bad_inputs(change, msg):
 def test_wrapper_rejects_bad_dtypes(change, msg):
     with pytest.raises(TypeError, match=msg):
         ssm_scan(**_args(**change))
+
+
+# --- the bf16 tensor-core design of csrc/ssm_scan.cu, modelled on the CPU --
+# The kernel runs the chunked SSD form in chunks of 64 steps with
+# mma.m16n8k16 (bf16 operands, float32 sums). Its arithmetic, modelled
+# here in plain torch (float32 sums of exact bf16 products), is held
+# against a float64 sequential oracle at the bars the card holds the
+# kernel to: y 2e-2, the float32 state 3e-4. Every product takes either
+# operands that are bf16 as given (x, B, C) or a float32 operand split
+# into bf16 hi + lo, which carries ~16 bits: one bf16 rounding misses
+# both bars (the last test).
+TC_CHUNK = 64
+SSM_BF16_Y_TOL = 2e-2
+
+
+def _bf16(t):
+    """t rounded to bf16 once, kept in float32."""
+    return t.to(torch.bfloat16).to(torch.float32)
+
+
+def _split(t):
+    """t as the sum of its bf16 hi and lo parts, the two operands the
+    kernel feeds to two products."""
+    hi = _bf16(t)
+    return hi + _bf16(t - hi)
+
+
+def _tensor_core_model(x, dt, a, bm, cm, d, *, once=()):
+    """x, bm, cm bf16-valued float32. Per chunk: s = cumsum(dt a);
+    G = C B^T (exact products); M = G exp(s_t - s_u) dt_u [u <= t];
+    y = M x + exp(s_t) C h_in^T + D x; h <- exp(s_T) h
+    + (dt x exp(s_T - s))^T B. M, h_in and the state operand W are split
+    into bf16 hi + lo, or rounded once where named in `once` ("m", "h",
+    "w"). A ragged last chunk is padded with dt = 0, x = 0. Returns y
+    rounded to bf16 and the state."""
+    part = {k: _bf16 if k in once else _split for k in ("m", "h", "w")}
+    bsz, l, h, p = x.shape
+    n = bm.shape[-1]
+    state = torch.zeros(bsz, h, p, n)
+    causal = torch.tril(torch.ones(TC_CHUNK, TC_CHUNK, dtype=torch.bool))
+    ys = []
+    for t0 in range(0, l, TC_CHUNK):
+        tn = min(TC_CHUNK, l - t0)
+
+        def pad(t):
+            out = t.new_zeros((bsz, TC_CHUNK) + t.shape[2:])
+            out[:, :tn] = t[:, t0:t0 + tn]
+            return out
+        xc, dtc, bc, cc = pad(x), pad(dt), pad(bm), pad(cm)
+        s = torch.cumsum(dtc * a, dim=1)                         # (B, T, H)
+        g = cc @ bc.transpose(1, 2)                              # (B, T, U)
+        decay = torch.exp(s[:, :, None, :] - s[:, None, :, :])  # (B,T,U,H)
+        m = part["m"](torch.where(causal[None, :, :, None],
+                                  g[..., None] * decay * dtc[:, None], 0.0))
+        y = (torch.einsum("btuh,buhp->bthp", m, xc)
+             + torch.exp(s)[..., None]
+             * torch.einsum("btn,bhpn->bthp", cc, part["h"](state))
+             + xc * d[:, None])
+        ys.append(y[:, :tn])
+        w = dtc[..., None] * xc * torch.exp(s[:, -1:] - s)[..., None]
+        state = (state * torch.exp(s[:, -1])[..., None, None]
+                 + torch.einsum("buhp,bun->bhpn", part["w"](w), bc))
+    return _bf16(torch.cat(ys, dim=1)), state
+
+
+def _sequential_f64(x, dt, a, bm, cm, d):
+    """The recurrence step by step in float64."""
+    x, dt, a, bm, cm, d = (t.double() for t in (x, dt, a, bm, cm, d))
+    bsz, l, h, p = x.shape
+    state = torch.zeros(bsz, h, p, bm.shape[-1], dtype=torch.float64)
+    ys = []
+    for t in range(l):
+        state = (state * torch.exp(dt[:, t] * a)[..., None, None]
+                 + torch.einsum("bhp,bn->bhpn", x[:, t] * dt[:, t, :, None],
+                                bm[:, t]))
+        ys.append(torch.einsum("bhpn,bn->bhp", state, cm[:, t]))
+    return torch.stack(ys, dim=1) + x * d[:, None], state
+
+
+@pytest.fixture
+def one_thread():
+    """The model and the float64 oracle are long chains of tensor ops: one
+    thread keeps each test process from contending with the other test
+    workers for the cores. Restored after the test."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@functools.lru_cache(maxsize=None)
+def _case(shape, seed):
+    """The bf16-valued inputs of a case and the float64 oracle's result,
+    computed once for the tests that share them."""
+    args = _bf16_inputs(shape, seed)
+    return args, _sequential_f64(*args)
+
+
+@functools.lru_cache(maxsize=None)
+def _model(shape, seed, once=()):
+    return _tensor_core_model(*_case(shape, seed)[0], once=once)
+
+
+def _bf16_inputs(shape, seed):
+    x, dt, a, bm, cm, d = map(torch.from_numpy, _inputs(*shape, seed=seed))
+    return _bf16(x), dt, a, _bf16(bm), _bf16(cm), d
+
+
+def _meets_bars(got, want):
+    (y, state), (y64, state64) = got, want
+    return (torch.allclose(y, y64.float(), atol=SSM_BF16_Y_TOL,
+                           rtol=SSM_BF16_Y_TOL)
+            and torch.allclose(state, state64.float(), atol=TOL, rtol=TOL))
+
+
+# zamba2's head shape (P = N = 64) at 8 of its 80 independent heads over
+# a 512-token prompt, then tests/test_torch_cuda.py's ragged shapes
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("shape", [(1, 512, 8, 64, 64), (2, 37, 3, 24, 20),
+                                   (1, 70, 5, 80, 128)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_tensor_core_model_meets_the_card_bars(shape, seed, one_thread):
+    y, state = _model(shape, seed)
+    y64, state64 = _case(shape, seed)[1]
+    torch.testing.assert_close(y, y64.float(), atol=SSM_BF16_Y_TOL,
+                               rtol=SSM_BF16_Y_TOL)
+    torch.testing.assert_close(state, state64.float(), atol=TOL, rtol=TOL)
+
+
+@pytest.mark.parametrize("once", ["m", "h", "w"])
+def test_one_rounding_of_a_float32_operand_misses_the_bars(once,
+                                                           one_thread):
+    """Why each float32 operand takes two products: rounded to bf16 once,
+    M (feeding y) or the state operand W misses its bar at zamba2's head
+    shape, and h_in (feeding y) at seed 1."""
+    shape, seed = (1, 512, 8, 64, 64), 1
+    want = _case(shape, seed)[1]
+    assert _meets_bars(_model(shape, seed), want)
+    assert not _meets_bars(_model(shape, seed, once=(once,)), want)
