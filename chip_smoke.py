@@ -15,7 +15,11 @@ Phases, each of which raises on failure:
      sequence between layers), and zamba2 and xlstm-350m at full width
      with one group, on the card (kernel path) against the same models on
      the CPU (plain path);
-  5. the device tabu search on CUDA against the same search on the CPU;
+  5. the device tabu search on CUDA against the same search on the CPU,
+     identical on integer instances: the round regime, the pass regime
+     (background-heavy ragged batches with frozen jobs and reservations),
+     the device greedy init at 32 wards x 100 jobs, and the
+     contention-aware `scheduler.search_fleet` at 8 wards x 40 jobs;
   6. the main paths, each with every launch counter set to 0 just before
      it and read just after:
      a. `repro_torch.launch.serve.run(patients=100)`: calibrate, strategy
@@ -25,11 +29,17 @@ Phases, each of which raises on failure:
         at full width and depth in bf16: 4 prompts of 512 tokens, 32
         greedy steps (flash_attention, ssm_scan);
      c. the same for xlstm-350m (mlstm_chunk);
+     d. `repro_torch.launch.serve.run_wards(wards=32, patients=100)` on a
+        4 + 2 fleet, independent and with contention (calibration:
+        lstm_sequence; planning: the batched device search);
   7. timings with CUDA events (and by CUDA-graph replay, the device time
      alone, for each kernel at its main-path shape), each printed beside
      the card's name and power limit, and for ssm_scan and
      mlstm_chunk the registers and spills `nvcc -Xptxas -v` reported and
-     the tensor-core (HMMA) instructions in each kernel's SASS;
+     the tensor-core (HMMA) instructions in each kernel's SASS; the
+     schedule searches on CUDA, on the host CPU and in Python (host clock
+     after a synchronise), and the device search's kernel launches per
+     pass-regime sweep (torch.profiler);
   8. one more run of each main path under torch.profiler: device busy
      share and the kernels that take the device's time.
 The second-to-last line is a JSON object with one entry per kernel; the
@@ -124,6 +134,20 @@ MLSTM_ATOL, MLSTM_RTOL, MLSTM_M_ATOL = 5e-4, 5e-3, 1e-5
 MLSTM_BF16_Y_TOL = 2e-2
 MLSTM_CHUNK = 64                # the kernel's chunk length
 XLSTM_BLOCKS = 7                # mLSTM blocks per group
+# fleet planning: the reference contention benchmark's fleet (4 cloud + 2
+# edge machines, benchmarks/scheduler_scale.py bench_contention) and
+# run_wards at 32 wards x 100 patients; the contention search held
+# against the CPU at 8 x 40, and timed at FLEET_TIMED_WARDS x 100 with the
+# benchmark's budgets (max_count 5, max_sweeps 4)
+FLEET_MPT = (4, 2)
+FLEET_WARDS, FLEET_PATIENTS = 32, 100
+FLEET_CHECK = (8, 40)
+FLEET_TIMED_WARDS = 4
+BATCHED_TIMED_N = (100, 1000)   # search_batched's instance sizes
+FLEET_TIMED_BUDGET = dict(max_count=5, max_sweeps=4)
+PYTHON_ONLY = 10 ** 9           # a search threshold no instance reaches
+SLOW_RUN_S = 20.0               # a timing whose first run takes longer is
+                                # reported from that one run
 
 
 def card_line():
@@ -548,6 +572,394 @@ def int_instance(sim, tiers, rng, n):
             for i in range(n)]
 
 
+def int_reservations(sim, tiers, rng, per_tier=3):
+    """`per_tier` integer interval reservations on each shared tier."""
+    return {t: [sim.Reservation(arrival=float(r + rng.integers(0, 40)),
+                                proc=float(rng.integers(1, 25)),
+                                release=float(r),
+                                weight=float(rng.integers(0, 4)))
+                for r in rng.integers(0, 20, per_tier)]
+            for t in (tiers.CC, tiers.ES)}
+
+
+def metro_wards(problems, seed, wards, n, integer=True):
+    """The reference contention benchmark's wards: `metro_jobs` (the
+    cloud-attractive cost regime) from seeds seed, seed + 1, ...; with
+    `integer`, releases rounded so every cost is an integer and the card
+    and the CPU must agree exactly."""
+    import numpy as np
+    out = []
+    for i in range(wards):
+        jobs = problems.metro_jobs(np.random.default_rng(seed + i), n=n)
+        if integer:
+            jobs = [dataclasses.replace(j, release=float(round(j.release)))
+                    for j in jobs]
+        out.append(jobs)
+    return out
+
+
+class Spy:
+    """Within `with`, records the keyword arguments of every call of
+    `module.name` (and counts them), then restores it."""
+
+    def __init__(self, module, name):
+        self.module, self.name, self.calls = module, name, []
+
+    def __enter__(self):
+        real = self.real = getattr(self.module, self.name)
+
+        def wrapper(*args, **kwargs):
+            self.calls.append(kwargs)
+            return real(*args, **kwargs)
+
+        setattr(self.module, self.name, wrapper)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.real)
+
+
+def plans_identical(a, b):
+    """Two FleetPlans with the same joint and naive plans, claims, sweep
+    count and fleet-true objectives."""
+    return (a.assignments == b.assignments
+            and a.naive_assignments == b.naive_assignments
+            and a.naive_reported == b.naive_reported
+            and a.sweeps == b.sweeps
+            and all(a.fleet.objective(o) == b.fleet.objective(o)
+                    and a.naive_fleet.objective(o)
+                    == b.naive_fleet.objective(o)
+                    for o in ("weighted", "unweighted", "last")))
+
+
+def host_seconds(torch, fn, card, label, reps=3):
+    """Median host-clock seconds of `fn` over `reps` runs, each between
+    two `torch.cuda.synchronize()`; a first run longer than SLOW_RUN_S is
+    reported alone. Prints the result beside the card."""
+    secs = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        if secs[0] > SLOW_RUN_S:
+            break
+    med = statistics.median(secs)
+    how = (f"median of {len(secs)} runs" if len(secs) > 1 else "one run"
+           if reps == 1 else f"one run (over {SLOW_RUN_S:.0f} s, not "
+           f"repeated)")
+    print(f"[{card}] {label}: {med:.4f} s, {how}")
+    return med
+
+
+def check_device_search(torch, cuda):
+    """Phase 5: the device tabu search on `cuda` against the same search
+    on the CPU, identical on integer instances; raises on any
+    difference."""
+    import numpy as np
+
+    from repro_torch.core import problems, scheduler, scheduler_torch
+    from repro_torch.core import simulator as sim
+    from repro_torch.core import tiers
+
+    rng = np.random.default_rng(0)
+    for n in (40, 100):
+        for fleet in ((1, 1), (2, 3)):
+            for objective in ("weighted", "unweighted", "last"):
+                jobs = [int_instance(sim, tiers, rng, n) for _ in range(2)]
+                init = [[int(a) for a in rng.integers(0, 3, n)]
+                        for _ in range(2)]
+                kw = dict(objective=objective, machines_per_tier=fleet)
+                vg, ag = scheduler_torch.tabu_search_batched(
+                    jobs, init, device=cuda, **kw)
+                vc, ac = scheduler_torch.tabu_search_batched(
+                    jobs, init, device="cpu", **kw)
+                same = all(np.array_equal(a, b) for a, b in zip(ag, ac)) \
+                    and np.array_equal(vg, vc)
+                print(f"search n={n} fleet={fleet} {objective}: cuda "
+                      f"{vg.tolist()} cpu {vc.tolist()} identical={same}")
+                if not same:
+                    raise RuntimeError("device search differs between "
+                                       "CUDA and CPU")
+
+    # the pass regime: ragged background-heavy batches, 30 % of each ward
+    # frozen and 3 + 3 reservations, padded so that 2·S < rows
+    for n in (40, 100):
+        sizes = (n, 7 * n // 10, 4 * n // 10)
+        for fleet in ((1, 1), (2, 3)):
+            for objective in ("weighted", "unweighted", "last"):
+                jobs = [int_instance(sim, tiers, rng, m) for m in sizes]
+                init = [[int(a) for a in rng.integers(0, 3, m)]
+                        for m in sizes]
+                frozen = [list(rng.random(m) < 0.3) for m in sizes]
+                s_slots = -(-max(m - sum(f) for m, f in zip(sizes, frozen))
+                            // 16) * 16
+                kw = dict(objective=objective, machines_per_tier=fleet,
+                          frozen=frozen, pad_to=2 * s_slots + 16,
+                          reserved=[int_reservations(sim, tiers, rng)
+                                    for _ in sizes])
+                with Spy(scheduler_torch, "_tabu_run_batched") as spy:
+                    t0 = time.perf_counter()
+                    vg, ag = scheduler_torch.tabu_search_batched(
+                        jobs, init, device=cuda, **kw)
+                    tg = time.perf_counter() - t0
+                    vc, ac = scheduler_torch.tabu_search_batched(
+                        jobs, init, device="cpu", **kw)
+                modes = {c["mode"] for c in spy.calls}
+                same = all(np.array_equal(a, b) for a, b in zip(ag, ac)) \
+                    and np.array_equal(vg, vc)
+                print(f"search pass regime sizes={sizes} rows="
+                      f"{kw['pad_to']} S={s_slots} fleet={fleet} "
+                      f"{objective}: cuda {vg.tolist()} cpu {vc.tolist()} "
+                      f"identical={same} (cuda {tg:.2f} s)")
+                if not same or modes != {"pass"}:
+                    raise RuntimeError(f"pass regime: identical={same}, "
+                                       f"regimes {modes}")
+
+    # the device greedy init: 32 wards of 100 jobs, no initial
+    jobs = [int_instance(sim, tiers, rng, FLEET_PATIENTS)
+            for _ in range(FLEET_WARDS)]
+    kw = dict(machines_per_tier=FLEET_MPT)
+    for max_rounds in (0, None):
+        vg, ag = scheduler_torch.tabu_search_batched(
+            jobs, max_rounds=max_rounds, device=cuda, **kw)
+        vc, ac = scheduler_torch.tabu_search_batched(
+            jobs, max_rounds=max_rounds, device="cpu", **kw)
+        same = all(np.array_equal(a, b) for a, b in zip(ag, ac)) \
+            and np.array_equal(vg, vc)
+        print(f"search greedy init B={FLEET_WARDS} n={FLEET_PATIENTS} "
+              f"fleet={FLEET_MPT} max_rounds={max_rounds}: fleet total "
+              f"cuda {vg.sum()} cpu {vc.sum()} identical={same}")
+        if not same:
+            raise RuntimeError("greedy init differs between CUDA and CPU")
+    greedy = [scheduler.greedy_schedule(
+        j, machines_per_tier={tiers.CC: FLEET_MPT[0],
+                              tiers.ES: FLEET_MPT[1]}) for j in jobs]
+    probe = scheduler_torch.tabu_search_batched(jobs, max_rounds=0,
+                                                device=cuda, **kw)[1]
+    if [[sim.MACHINES[int(t)] for t in a] for a in probe] != greedy:
+        raise RuntimeError("the device greedy init is not greedy_schedule")
+
+    # the contention-aware fleet search: the benchmark's cloud-heavy wards
+    # at 8 x 40 on the 4 + 2 fleet; its batched sweeps take the pass regime
+    wards = metro_wards(problems, 5000, *FLEET_CHECK)
+    mpt = {tiers.CC: FLEET_MPT[0], tiers.ES: FLEET_MPT[1]}
+    plans, secs, modes = {}, {}, {}
+    for label, dev in (("cuda", cuda), ("cpu", torch.device("cpu"))):
+        with Spy(scheduler_torch, "_tabu_run_batched") as spy:
+            t0 = time.perf_counter()
+            plans[label] = scheduler.search_fleet(
+                wards, machines_per_tier=mpt, device=dev)
+            secs[label] = time.perf_counter() - t0
+        modes[label] = [c["mode"] for c in spy.calls]
+    pg, pc = plans["cuda"], plans["cpu"]
+    same = plans_identical(pg, pc)
+    print(f"search_fleet {FLEET_CHECK[0]} wards x {FLEET_CHECK[1]} jobs, "
+          f"fleet {FLEET_MPT}: naive claimed {pg.naive_reported} / "
+          f"fleet-true {pg.naive_fleet.weighted_sum} -> "
+          f"{pg.fleet.weighted_sum} after {pg.sweeps} sweeps (cpu "
+          f"{pc.fleet.weighted_sum}, {pc.sweeps} sweeps), contention gap "
+          f"{pg.contention_gap:.4f}, gap closed {pg.gap_closed:.4f}, "
+          f"regimes {modes['cuda']}, identical={same} (cuda "
+          f"{secs['cuda']:.2f} s, cpu {secs['cpu']:.2f} s)")
+    if not same or modes["cuda"] != modes["cpu"] \
+            or "pass" not in modes["cuda"] or not pg.contention_gap > 1:
+        raise RuntimeError("search_fleet: CUDA and CPU plans differ, no "
+                           "sweep took the pass regime or no contention")
+
+
+def drive_fleet(torch, kernels, card):
+    """Phase 6d: run_wards on the card, independent and with contention,
+    every counter of `kernels` and the device search's call count
+    read around each run alone. Returns {mode: (planning seconds,
+    lstm_sequence launches)}."""
+    from repro_torch.configs.icu_lstm import ICU_WORKLOADS
+    from repro_torch.core import scheduler_torch
+    from repro_torch.launch import serve
+
+# 6d. the fleet path: run_wards at 32 wards x 100 patients on the
+    # 4 + 2 fleet, independent and with contention, every counter read
+    # around each run alone. Calibration runs each ICU model twice (one
+    # lstm_sequence launch per inference and layer); planning goes through
+    # the batched device search
+    fleet_runs = {}
+    for contention in (False, True):
+        for k in kernels.values():
+            k.launches = 0
+        scheduler_torch.tabu_search_batched.calls = 0
+        t0 = time.perf_counter()
+        out = serve.run_wards(
+            wards=FLEET_WARDS, patients=FLEET_PATIENTS,
+            cloud_machines=FLEET_MPT[0], edge_machines=FLEET_MPT[1],
+            contention=contention, verbose=False, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launched = {name: k.launches for name, k in kernels.items()}
+        calls = scheduler_torch.tabu_search_batched.calls
+        schedules, plan_s = out[0], out[1]
+        label = "contention" if contention else "independent"
+        total = sum(s_.weighted_sum for s_ in schedules)
+        line = (f"run_wards {label} {FLEET_WARDS} wards x {FLEET_PATIENTS} "
+                f"patients, fleet {FLEET_MPT}: fleet total weighted "
+                f"{total:.0f}")
+        bad = len(schedules) != FLEET_WARDS or any(
+            len(s_.entries) != FLEET_PATIENTS for s_ in schedules)
+        if contention:
+            plan = out[2]
+            line += (f", naive claimed {plan.naive_reported:.0f}, naive "
+                     f"fleet-true {plan.naive_fleet.weighted_sum:.0f}, "
+                     f"contention gap {plan.contention_gap:.4f}, gap "
+                     f"closed {plan.gap_closed:.4f}, {plan.sweeps} sweeps")
+            bad |= plan.fleet.weighted_sum > plan.naive_fleet.weighted_sum \
+                or plan.contention_gap < 1
+        print(f"{line}; tiers used "
+              f"{sorted({e.machine for s_ in schedules for e in s_.entries})}"
+              f"; launches {launched}, device-search calls {calls}")
+        print(f"[{card}] run_wards {label}: planning {plan_s:.4f} s (host "
+              f"clock, after the warm-up call), whole call {wall:.2f} s")
+        want = 2 * len(ICU_WORKLOADS) * ICU_WORKLOADS[0].depth
+        if bad or calls < 1 or launched != dict(
+                {name: 0 for name in kernels}, lstm_sequence=want):
+            raise RuntimeError(f"run_wards {label}: launches {launched} "
+                               f"(expected {want} lstm_sequence and no "
+                               f"other), {calls} device-search calls, or a "
+                               f"bad plan")
+        fleet_runs[label] = (plan_s, launched["lstm_sequence"])
+    return fleet_runs
+
+
+def time_fleet(torch, cuda, card):
+    """Phase 7's fleet planning timings (search_batched, search_fleet)
+    on `cuda`, torch on the host CPU and the Python search, and the
+    device search's launches in one pass-regime sweep."""
+    import numpy as np
+
+    from repro_torch.core import problems, scheduler, scheduler_torch
+    from repro_torch.core import simulator as sim
+    from repro_torch.core import tiers
+
+    mpt_fleet = {tiers.CC: FLEET_MPT[0], tiers.ES: FLEET_MPT[1]}
+    # fleet planning on the 4 + 2 fleet: the batched device search on CUDA
+    # and on the host CPU, and the Python search looped per ward (no
+    # device search). n = 1000 runs at B = 1 only if B = 32 takes over
+    # 60 s on CUDA
+    cpu = torch.device("cpu")
+    backends = (("cuda", dict(min_batch=1, device=cuda)),
+                ("torch on the host cpu", dict(min_batch=1, device=cpu)),
+                ("python", dict(min_batch=PYTHON_ONLY,
+                                device_threshold=PYTHON_ONLY, device=cpu)))
+    batched_s = {}
+    small, large = BATCHED_TIMED_N
+    for n, sizes in ((small, (1, 32)), (large, (32, 1))):
+        for B in sizes:
+            if (n, B) == (large, 1) and batched_s[(large, 32, "cuda")] <= 60:
+                print(f"search_batched n={large} B=1 not run: B=32 took "
+                      f"{batched_s[(large, 32, 'cuda')]:.1f} s on CUDA")
+                continue
+            jobs = [int_instance(sim, tiers, np.random.default_rng(7000 + i),
+                                 n) for i in range(B)]
+            for label, kw in backends:
+                if (n, B, label) == (large, 32, "torch on the host cpu") \
+                        and batched_s[(large, 32, "cuda")] > 60:
+                    break
+                batched_s[(n, B, label)] = host_seconds(
+                    torch, lambda: scheduler.search_batched(
+                        jobs, machines_per_tier=mpt_fleet, **kw), card,
+                    f"search_batched B={B} n={n} fleet {FLEET_MPT} {label}")
+
+    # the device search's launches in one pass-regime sweep: the batched
+    # replan of phase 5's 8 x 40 fleet against the other wards' cloud jobs
+    # of its naive plan, as search_fleet's first sweep makes it
+    from torch.profiler import ProfilerActivity, profile
+    wards = metro_wards(problems, 5000, *FLEET_CHECK)
+    naive = [s_.assignment() for s_ in scheduler.search_batched(
+        wards, machines_per_tier=mpt_fleet, device=cuda)]
+    resv = scheduler._fleet_reservations(wards, naive, (tiers.CC,))
+    rows = max(len(w) + sum(len(v) for v in r.values())
+               for w, r in zip(wards, resv))
+    sweep_kw = dict(max_rounds=2, machines_per_tier=FLEET_MPT,
+                    reserved=resv, pad_to=-(-rows // 64) * 64, device=cuda)
+    init = [[sim.MACHINES.index(t) for t in a] for a in naive]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    scheduler_torch.tabu_search_batched(wards, init, **sweep_kw)
+    torch.cuda.synchronize()
+    sweep_s = time.perf_counter() - t0
+    with Spy(scheduler_torch, "_round_batched") as evals, \
+            profile(activities=[ProfilerActivity.CUDA]) as prof:
+        scheduler_torch.tabu_search_batched(wards, init, **sweep_kw)
+        torch.cuda.synchronize()
+    from torch.autograd import DeviceType
+    stats = prof.key_averages()
+    sweep_launches = sum(e.count for e in stats
+                         if e.key == "cudaLaunchKernel")
+    device_events = sum(e.count for e in stats
+                        if e.device_type != DeviceType.CPU)
+    device_s = sum(e.self_device_time_total for e in stats
+                   if e.device_type != DeviceType.CPU) / 1e6
+    sweep_evals = len(evals.calls)
+    per_eval = sweep_launches / max(sweep_evals, 1)
+    print(f"[{card}] one pass-regime sweep (tabu_search_batched, "
+          f"max_rounds 2), {FLEET_CHECK[0]} wards x {FLEET_CHECK[1]} jobs, "
+          f"{sweep_kw['pad_to']} rows, fleet {FLEET_MPT}: {sweep_launches} "
+          f"kernel launches (cudaLaunchKernel; {device_events} device "
+          f"events, {device_s:.4f} s of device time) in {sweep_evals} delta "
+          f"evaluations ({per_eval:.0f} launches per evaluation, "
+          f"{per_eval / sweep_kw['pad_to']:.2f} per row); untraced "
+          f"{sweep_s:.3f} s, {sweep_s / max(sweep_launches, 1) * 1e6:.2f} "
+          f"us per launch")
+
+    # the ward count of the timed search_fleet: the first sweep's padded
+    # rows at 32, 16, 8 and 4 of the benchmark's wards, and what one sweep
+    # (2 passes over the ward's movable slots) would take at the launch
+    # rate just measured
+    for w in (32, 16, 8, 4):
+        wards = metro_wards(problems, 5000, w, FLEET_PATIENTS, integer=False)
+        naive = [s_.assignment() for s_ in scheduler.search_batched(
+            wards, machines_per_tier=mpt_fleet, max_count=5, device=cuda)]
+        resv = scheduler._fleet_reservations(wards, naive, (tiers.CC,))
+        rows = max(len(wd) + sum(len(v) for v in r.values())
+                   for wd, r in zip(wards, resv))
+        pad = -(-rows // 64) * 64
+        slots = -(-FLEET_PATIENTS // 16) * 16
+        launches_est = 2 * slots * per_eval / sweep_kw["pad_to"] * pad
+        print(f"search_fleet at {w} wards x {FLEET_PATIENTS}: first sweep "
+              f"{rows} rows ({pad} padded), {slots} movable slots: one "
+              f"sweep ~{launches_est / 1e6:.2f} M launches, ~"
+              f"{launches_est * sweep_s / max(sweep_launches, 1):.0f} s on "
+              f"CUDA at the measured launch rate")
+
+    # search_fleet on the benchmark's cloud-heavy wards (its float
+    # releases), FLEET_TIMED_WARDS x 100 jobs, with the benchmark's
+    # budgets: CUDA and torch on the host CPU once each, the Python
+    # backend (Python naive stage and sweeps) median of 3
+    wards = metro_wards(problems, 5000, FLEET_TIMED_WARDS, FLEET_PATIENTS,
+                        integer=False)
+    fleet_s = {}
+    for label, kw in (("cuda", dict(device=cuda)),
+                      ("torch on the host cpu", dict(device=cpu)),
+                      ("python", dict(sweep_backend="python",
+                                      min_batch=PYTHON_ONLY,
+                                      device_threshold=PYTHON_ONLY,
+                                      device=cpu))):
+        res = {}
+        fleet_s[label] = host_seconds(
+            torch, lambda: res.setdefault("plan", scheduler.search_fleet(
+                wards, machines_per_tier=mpt_fleet, **FLEET_TIMED_BUDGET,
+                **kw)), card,
+            f"search_fleet {FLEET_TIMED_WARDS} wards x {FLEET_PATIENTS} "
+            f"fleet {FLEET_MPT} max_count 5 max_sweeps 4 {label}",
+            reps=1 if label != "python" else 3)
+        plan = res["plan"]
+        print(f"  {label}: naive claimed {plan.naive_reported:.1f}, naive "
+              f"fleet-true {plan.naive_fleet.weighted_sum:.1f}, fleet-true "
+              f"{plan.fleet.weighted_sum:.1f} after {plan.sweeps} sweeps "
+              f"(gap {plan.contention_gap:.4f}, closed "
+              f"{plan.gap_closed:.4f})")
+
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -766,25 +1178,7 @@ def main():
     del xp_gpu
 
     # 5. device search: CUDA vs CPU on integer instances
-    rng = np.random.default_rng(0)
-    for n in (40, 100):
-        for fleet in ((1, 1), (2, 3)):
-            for objective in ("weighted", "unweighted", "last"):
-                jobs = [int_instance(sim, tiers, rng, n) for _ in range(2)]
-                init = [[int(a) for a in rng.integers(0, 3, n)]
-                        for _ in range(2)]
-                kw = dict(objective=objective, machines_per_tier=fleet)
-                vg, ag = scheduler_torch.tabu_search_batched(
-                    jobs, init, device=cuda, **kw)
-                vc, ac = scheduler_torch.tabu_search_batched(
-                    jobs, init, device="cpu", **kw)
-                same = all(np.array_equal(a, b) for a, b in zip(ag, ac)) \
-                    and np.array_equal(vg, vc)
-                print(f"search n={n} fleet={fleet} {objective}: cuda "
-                      f"{vg.tolist()} cpu {vc.tolist()} identical={same}")
-                if not same:
-                    raise RuntimeError("device search differs between "
-                                       "CUDA and CPU")
+    check_device_search(torch, cuda)
 
     # 6. the main path, with every counter read around it alone
     lstm_cell.launches = 0
@@ -845,6 +1239,9 @@ def main():
                                "mlstm_chunk": XLSTM_BLOCKS * xcfg.num_groups},
         card)
     mlstm_launches = xl["mlstm_chunk"]
+
+    # 6d. the fleet path (its counters read around each run alone)
+    fleet_runs = drive_fleet(torch, kernels, card)
 
     # main-path lstm_sequence launches per (B, I, H): calibrate runs two
     # inferences of CALIBRATE_RECORDS per workload, execution one of
@@ -1050,6 +1447,8 @@ def main():
         print(f"[{card}] scheduler.search n=100 {label}: median "
               f"{statistics.median(secs):.4f} s over 3 runs")
 
+    time_fleet(torch, cuda, card)
+
     # 8. where the time goes: one more main-path run under torch.profiler
     # (its counters are not read); device busy share = summed device self
     # time over the traced run's wall time, which the tracing inflates
@@ -1080,7 +1479,8 @@ def main():
         "source": "src/repro_torch/kernels/csrc/lstm_cell.cu",
         "replaces": "src/repro/kernels/lstm_cell.py:25, scanned by "
                     "src/repro/models/lstm.py:52-58",
-        "launches": launches, "max_abs_err": seq_err,
+        "launches": launches + sum(n for _, n in fleet_runs.values()),
+        "max_abs_err": seq_err,
         "ms": mean_over_mix(per_seq, "ms"),
         "plain_ms": mean_over_mix(per_seq, "plain_ms"),
         "bound_ms": mean_over_mix(per_seq, "bound_ms"),

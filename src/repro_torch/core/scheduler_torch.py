@@ -16,15 +16,21 @@ names (DESIGN.md §3.2, §8):
 
 Used for:
   * exact small-n optimum: all 3^n assignments scored in batches;
-  * `tabu_search_batched`: B ward instances searched together by
-    delta-evaluated steepest-descent rounds ("round" regime, DESIGN.md §12)
-    — variable sizes padded with transparent phantom jobs, mixed fleets
-    padded with +inf-busy phantom machines, per-instance convergence flags.
+  * `tabu_search_batched`: B ward instances searched together, in one of
+    two shape-dispatched regimes (DESIGN.md §12) — wide steepest-descent
+    rounds ("round") or width-1 accept-as-you-go passes over the movable
+    slots ("pass") — with variable sizes padded with transparent phantom
+    jobs, mixed fleets padded with +inf-busy phantom machines, a greedy
+    initial assignment computed on the device, and per-instance
+    convergence flags; `tabu_search_device` is its B = 1 case;
+  * random-restart stochastic local search (kept for comparison; it syncs
+    to the host every iteration).
 
 JAX's `lax.scan` and `lax.while_loop` become Python loops here, with the
 same per-step accumulation order, so sums over queue positions match the
-reference step for step; the round loop reads one flag per round from the
-device. Everything is float32, as `_specs_to_np` packs it.
+reference step for step; the search loops read one flag per round (or
+per pass) from the device. Everything is float32, as `_specs_to_np`
+packs it.
 
 Machine encoding: 0 = cloud, 1 = edge, 2 = device (private). Queue ties
 break by (arrival, release, job index), matching `simulate`.
@@ -38,6 +44,7 @@ import torch
 
 from repro_torch.core.simulator import JobSpec
 from repro_torch.core.tiers import CC, ED, ES
+from repro_torch.device import resolve_device
 
 N_MACHINES = 3
 INF = float("inf")
@@ -160,10 +167,11 @@ def exact_optimum_device(jobs: Sequence[JobSpec],
                          objective: str = "weighted", batch: int = 65536,
                          machines_per_tier: Tuple[int, int] = (1, 1),
                          busy_until=None, device=None):
-    """Enumerate all 3^n assignments on `device`. Practical to n ~ 14.
-    Returns (best value, best assignment as an (n,) int array)."""
+    """Enumerate all 3^n assignments on `device` (default "cuda"; raises
+    RuntimeError without a CUDA device unless device="cpu"). Practical to
+    n ~ 14. Returns (best value, best assignment as an (n,) int array)."""
     n = len(jobs)
-    rel, w, proc, trans = specs_to_tensors(jobs, device)
+    rel, w, proc, trans = specs_to_tensors(jobs, resolve_device(device))
     total = N_MACHINES ** n
     powers = N_MACHINES ** np.arange(n)
     best_v, best_a = np.inf, None
@@ -403,6 +411,58 @@ def _round_batched(assign, mov_idx, mov_ok, tc, dev, oi: int):
     return total, vals
 
 
+def _busy_stack(busy_c, busy_e):
+    """(B, m_cloud), (B, m_edge) machine free times -> (B, 2, m) with the
+    smaller tier padded by +inf phantom machines, which FIFO dispatch
+    never selects."""
+    m = max(busy_c.shape[1], busy_e.shape[1])
+
+    def pad(bz):
+        extra = torch.full((bz.shape[0], m - bz.shape[1]), INF,
+                           dtype=bz.dtype, device=bz.device)
+        return torch.cat([bz, extra], dim=1)
+
+    return torch.stack([pad(busy_c), pad(busy_e)], dim=1)
+
+
+def _greedy_assign_batched(rel, w, proc, trans, valid, busy_c, busy_e):
+    """Vectorised `scheduler.greedy_schedule` for the whole batch: jobs in
+    (release, -weight, index) order, each to the machine minimising its
+    completion time given the free slots so far, ties to the lower tier
+    (device < edge < cloud) — the same rule, same tie-breaks. One walk
+    over job ranks runs every instance in lockstep, with no host read;
+    phantom jobs are skipped and stay pinned to the (zero-cost) device
+    tier."""
+    B, n = rel.shape
+    d = rel.device
+    order = _lexsort2(-w, rel)
+    binds = torch.arange(B, device=d)
+    free_T = _busy_stack(busy_c, busy_e)             # (B, 2, m), +inf pads
+    slots = torch.arange(free_T.shape[2], device=d)
+    shared = torch.arange(2, device=d)
+    # argmin over [device, edge, cloud] keeps the first (lowest) tier on
+    # ties, exactly like greedy_schedule's (ED, ES, CC) probe order
+    tier_of = torch.tensor([2, 1, 0], device=d)
+    assign = torch.full((B, n), 2, dtype=torch.int64, device=d)
+    for j in range(n):
+        k = order[:, j]                              # (B,) this rank's job
+        v = valid[binds, k]
+        r = rel[binds, k]
+        arr_T = r[:, None] + trans[binds, k, :2]     # (B, 2)
+        slot = torch.argmin(free_T, dim=2, keepdim=True)  # earliest free
+        fmin = torch.gather(free_T, 2, slot)[..., 0]
+        end_T = torch.maximum(arr_T, fmin) + proc[binds, k, :2]
+        end_dev = r + trans[binds, k, 2] + proc[binds, k, 2]
+        pick = torch.argmin(
+            torch.stack([end_dev, end_T[:, 1], end_T[:, 0]], 1), dim=1)
+        tier = tier_of[pick]
+        assign[binds, k] = torch.where(v, tier, assign[binds, k])
+        claim = (v[:, None] & (tier[:, None] == shared))[..., None] \
+            & (slots == slot)
+        free_T = torch.where(claim, end_T[..., None], free_T)
+    return assign
+
+
 def _run_rounds(assign0, mov_idx, mov_ok, tc, dev, oi, max_moves, binds):
     """mode="round": steepest descent over the S x 3 single-move
     neighbourhood, one wide delta-evaluated round per iteration, accept
@@ -471,38 +531,79 @@ def _run_rounds(assign0, mov_idx, mov_ok, tc, dev, oi, max_moves, binds):
     return assign, totals, rnd
 
 
-def _tabu_run_batched(assign0, rel, w, proc, trans, mov_idx, mov_ok,
-                      max_rounds: int, busy_c, busy_e, objective: str,
-                      greedy_init: bool = False, mode: str = "round"):
+def _run_passes(assign0, mov_idx, mov_ok, tc, dev, oi, max_rounds, binds):
+    """mode="pass": each iteration is one PASS over the S movable slots;
+    per slot the job's 3 destination moves are delta-evaluated exactly
+    against the CURRENT assignment (a width-1 `_round_batched`) and a
+    strictly improving best move commits at once, like the incremental
+    Python tabu round. A ward whose previous pass changed nothing stays
+    inactive (its slots score +inf). The loop test reads one flag from the
+    device per pass, none per slot."""
+    B, _ = assign0.shape
+    S = mov_idx.shape[1]
+    d = assign0.device
+    assign = assign0.clone()
+    totals = torch.full((B,), INF, device=d)
+    active = torch.ones((B,), dtype=torch.bool, device=d)
+    rnd = 0
+    while rnd < max_rounds and bool(active.any()):
+        total = torch.full((B,), INF, device=d)
+        changed = torch.zeros((B,), dtype=torch.bool, device=d)
+        for s in range(S):
+            k = mov_idx[:, s]                           # (B,) job id
+            ok = mov_ok[:, s] & active
+            # width-1 toggle: fresh incumbent stats + job k's 3 moves,
+            # exact against the assignment as of THIS slot
+            tot, vals = _round_batched(assign, k[:, None], ok[:, None],
+                                       tc, dev, oi)
+            flat = vals[:, 0, :]                        # (B, 3)
+            m1 = torch.argmin(flat, dim=1)              # first minimum
+            v1 = torch.gather(flat, 1, m1[:, None])[:, 0]
+            improved = v1 < tot         # +inf masks no-ops and ~ok slots
+            assign[binds, k] = torch.where(improved, m1, assign[binds, k])
+            # the carried value is the FRESH per-tier evaluation of the
+            # incumbent whenever the slot rejects its moves — so a
+            # converged ward (a full pass of rejections) always reports
+            # its final assignment's exact score; only a max_rounds cap
+            # can surface a (one-composition) delta-assembled value
+            total = torch.where(improved, v1, tot)
+            changed = changed | improved
+        totals, active = total, changed
+        rnd += 1
+    if rnd == 0:
+        # max_rounds == 0 (greedy probe): the loop never evaluated anything
+        totals = _round_batched(assign, mov_idx, mov_ok, tc, dev, oi)[0]
+    return assign, totals, rnd
+
+
+def _tabu_run_batched(assign0, rel, w, proc, trans, movable, mov_idx,
+                      mov_ok, max_rounds: int, busy_c, busy_e,
+                      objective: str, greedy_init: bool = False,
+                      mode: str = "pass"):
     """Algorithm-2 search for B instances at once, on the device of the
-    inputs (DESIGN.md §12).
+    inputs, in one of two shape-dispatched regimes (DESIGN.md §12):
+
+    mode="pass" — the mostly-background regime (movable slots are a
+    small fraction of the padded rows): width-1 accept-as-you-go passes
+    over the movable slots (`_run_passes`); `max_rounds` counts passes.
 
     mode="round" — the movable-dominated regime: one steepest-descent
     round per iteration, all S toggles priced in one wide evaluation,
     accept each instance's best strictly improving move (plus a second,
     exactly-composing move on the other shared tier when one improves);
     `max_rounds` passes translate to a `max_rounds * S` move budget.
-    Per-instance convergence flags let a converged ward idle while
-    stragglers keep searching; machine counts are carried by the busy
-    vector shapes (phantom machines = +inf)."""
-    if mode != "round":
-        raise NotImplementedError(
-            f"mode={mode!r}: the background-heavy pass regime is not "
-            f"ported yet (ROADMAP.md, queue 1, item 4: pass regime)")
-    if greedy_init:
-        raise NotImplementedError(
-            "greedy initial assignment on the device is not ported yet "
-            "(ROADMAP.md, queue 1, item 4: greedy init); pass `initial`")
+
+    greedy_init replaces assign0 by the device greedy assignment of the
+    movable jobs (only reachable when every non-phantom job is movable:
+    frozen jobs and reservations require an explicit initial). Both
+    regimes share the tier/device precomputation and per-instance
+    convergence flags (a converged ward idles while stragglers keep
+    searching); machine counts are carried by the busy vector shapes
+    (phantom machines = +inf)."""
     oi = _OBJ_IDX[objective]
-    B, n = assign0.shape
-    m_mm = max(busy_c.shape[1], busy_e.shape[1])
-
-    def pad(bz):
-        extra = torch.full((B, m_mm - bz.shape[1]), INF, dtype=bz.dtype,
-                           device=bz.device)
-        return torch.cat([bz, extra], dim=1)
-
-    busy_T = torch.stack([pad(busy_c), pad(busy_e)], dim=1)  # (B, 2, m)
+    if greedy_init:
+        assign0 = _greedy_assign_batched(rel, w, proc, trans, movable,
+                                         busy_c, busy_e)
     parts = []
     for m in (0, 1):
         arr = rel + trans[:, :, m]
@@ -517,14 +618,19 @@ def _tabu_run_batched(assign0, rel, w, proc, trans, mov_idx, mov_ok,
                       "rel": gat(rel)})
     tc = {key: torch.stack([parts[0][key], parts[1][key]], dim=1)
           for key in parts[0]}                  # each (B, 2, n)
-    tc["busy"] = busy_T
+    tc["busy"] = _busy_stack(busy_c, busy_e)    # (B, 2, m)
     dev_end = rel + trans[:, :, 2] + proc[:, :, 2]
     dev = {"end": dev_end, "resp": dev_end - rel,
            "wresp": w * (dev_end - rel)}
-    binds = torch.arange(B, device=rel.device)
-    S = mov_idx.shape[1]
-    return _run_rounds(assign0, mov_idx, mov_ok, tc, dev, oi,
-                       max_rounds * S, binds)
+    binds = torch.arange(rel.shape[0], device=rel.device)
+    # real (non-padding) slots are a per-ward PREFIX of mov_idx
+    # (_movable_slots packs them first), so slot s of pass r visits the
+    # same job for a ward no matter how much batch padding it rides with
+    if mode == "round":
+        return _run_rounds(assign0, mov_idx, mov_ok, tc, dev, oi,
+                           max_rounds * mov_idx.shape[1], binds)
+    return _run_passes(assign0, mov_idx, mov_ok, tc, dev, oi, max_rounds,
+                       binds)
 
 
 def _reservation_rows(resv):
@@ -596,8 +702,9 @@ def tabu_search_batched(batch_jobs: Sequence[Sequence[JobSpec]],
                         reserved=None,
                         pad_to: int | None = None,
                         device=None):
-    """Plan B independent ward instances together on `device` (default:
-    the CPU). Counts its calls in `tabu_search_batched.calls`.
+    """Plan B independent ward instances together on `device` (default
+    "cuda"; raises RuntimeError without a CUDA device unless
+    device="cpu"). Counts its calls in `tabu_search_batched.calls`.
 
     batch_jobs: B job lists; sizes may differ — instances are padded to
     the largest with phantom jobs (p = 0, w = 0, masked transparent) that
@@ -608,21 +715,22 @@ def tabu_search_batched(batch_jobs: Sequence[Sequence[JobSpec]],
     dispatch never selects them. busy_until: optional per-ward
     (cloud_times, edge_times) pairs.
 
-    frozen: optional per-ward boolean masks (DESIGN.md §9) — a frozen job
-    occupies its machine pool and counts toward the objective, but every
-    move on it scores +inf. reserved: optional per-ward {tier:
-    [Reservation]} maps (DESIGN.md §12), compiled into pinned rows after
-    the ward's jobs. Both require an explicit ``initial``. pad_to: pad
-    instances to at least this many job slots.
-
-    Only the "round" regime is ported: a batch whose movable slots are
-    fewer than half its padded rows (the reference's "pass" regime) and a
-    call without ``initial`` (the device greedy init) raise
-    NotImplementedError.
+    initial: per-ward tier codes; None starts every ward from the device
+    greedy assignment (`greedy_schedule`'s rule). frozen: optional
+    per-ward boolean masks (DESIGN.md §9) — a frozen job occupies its
+    machine pool and counts toward the objective, but every move on it
+    scores +inf. reserved: optional per-ward {tier: [Reservation]} maps
+    (DESIGN.md §12), compiled into pinned rows after the ward's jobs.
+    Both require an explicit ``initial``. pad_to: pad instances to at
+    least this many job slots.
 
     Returns (objectives (B,) float ndarray, [per-ward (n_i,) int arrays])
     where objectives INCLUDE reservation contributions and assignments
-    cover only the ward's own jobs."""
+    cover only the ward's own jobs. Termination is per-instance; the call
+    returns when every ward has converged (or after max_rounds passes
+    over the movable slots, default 50). Each ward's trajectory is that of
+    `scheduler_jax.tabu_search_batched` — same regime, same tie-breaks."""
+    device = resolve_device(device)
     tabu_search_batched.calls += 1
     B = len(batch_jobs)
     if B == 0:
@@ -687,20 +795,95 @@ def tabu_search_batched(batch_jobs: Sequence[Sequence[JobSpec]],
         max_rounds = 50
     # regime dispatch (DESIGN.md §12): movable-dominated batches (movable
     # bucket at least half the padded rows) take the wide steepest-descent
-    # rounds; background-heavy batches would take the reference's
-    # width-1 passes, not ported yet
+    # rounds; background-heavy batches take the width-1 movable-slot
+    # passes. Both sides are a pure function of the batch's padded shape,
+    # so every ward of one call follows one regime and B = 1 replays it
     mode = "round" if 2 * mov_idx.shape[1] >= n_max else "pass"
 
     def put(a):
         return torch.as_tensor(a, device=device)
 
     assign, totals, _ = _tabu_run_batched(
-        put(assign0), put(rel), put(w), put(proc), put(trans), put(mov_idx),
-        put(mov_ok), int(max_rounds), put(busy_c), put(busy_e), objective,
-        greedy_init=initial is None, mode=mode)
+        put(assign0), put(rel), put(w), put(proc), put(trans), put(movable),
+        put(mov_idx), put(mov_ok), int(max_rounds), put(busy_c),
+        put(busy_e), objective, greedy_init=initial is None, mode=mode)
     assign = assign.cpu().numpy()
     return (totals.cpu().numpy().astype(np.float64),
             [assign[b, :sizes[b]] for b in range(B)])
+
+
+
+def tabu_search_device(jobs: Sequence[JobSpec],
+                       initial: Sequence[int] | np.ndarray | None = None,
+                       *, max_rounds: int | None = None,
+                       objective: str = "weighted",
+                       machines_per_tier: Tuple[int, int] = (1, 1),
+                       busy_until=None, frozen=None, reserved=None,
+                       device=None):
+    """Algorithm-2 neighbourhood search for one instance on `device`
+    (default "cuda"; raises without a CUDA device unless device="cpu").
+    Returns (best objective value, best assignment as an (n,) int array).
+
+    The B = 1 case of `tabu_search_batched` (same round and pass code), so
+    solo and batched runs follow identical trajectories. busy_until:
+    optional (cloud_times, edge_times) initial machine free times."""
+    # R006's home is core/scheduler*.py (DESIGN.md §14): this is the B = 1
+    # wrapper inside the search's own module, as tabu_search_jax is, and
+    # eager torch has no compiled-shape cache for it to bypass
+    # reprolint: disable=R006
+    vals, assigns = tabu_search_batched(
+        [jobs], None if initial is None else [list(initial)],
+        max_rounds=max_rounds, objective=objective,
+        machines_per_tier=(int(machines_per_tier[0]),
+                           int(machines_per_tier[1])),
+        busy_until=None if busy_until is None else [busy_until],
+        frozen=None if frozen is None else [frozen],
+        reserved=None if reserved is None else [reserved], device=device)
+    return float(vals[0]), assigns[0]
+
+
+def stochastic_search(jobs: Sequence[JobSpec], seed: int,
+                      initial: np.ndarray, *, iters: int = 200,
+                      pop: int = 256, objective: str = "weighted",
+                      machines_per_tier: Tuple[int, int] = (1, 1),
+                      busy_until=None, device=None):
+    """Random-restart 1-move local search, evaluated in batches on
+    `device` (default "cuda"; raises without a CUDA device unless
+    device="cpu").
+
+    Each iteration proposes `pop` single-job reassignments of the
+    incumbent, drawn from a torch.Generator seeded with `seed`, and keeps
+    the best if it strictly improves; the result is never worse than
+    `initial`. torch cannot replay `jax.random`, so the proposals (and
+    the trajectory) differ from the reference's. machines_per_tier /
+    busy_until describe the fleet the schedule runs on (DESIGN.md §7) and
+    are threaded into every candidate evaluation. Returns (best value,
+    best assignment as an (n,) int array)."""
+    dev = resolve_device(device)
+    n = len(jobs)
+    rel, w, proc, trans = specs_to_tensors(jobs, dev)
+    gen = torch.Generator().manual_seed(int(seed))
+    incumbent = torch.as_tensor(np.asarray(initial), dtype=torch.int64,
+                                device=dev)
+
+    def score(assign):
+        return evaluate_assignments(assign, rel, w, proc, trans,
+                                    machines_per_tier=machines_per_tier,
+                                    busy_until=busy_until)[objective]
+
+    best_v = float(score(incumbent[None])[0])
+    rows = torch.arange(pop, device=dev)
+    for _ in range(iters):
+        jobs_i = torch.randint(0, n, (pop,), generator=gen).to(dev)
+        machines = torch.randint(0, N_MACHINES, (pop,), generator=gen)
+        cand = incumbent[None].repeat(pop, 1)
+        cand[rows, jobs_i] = machines.to(dev)
+        vals = score(cand)
+        i = int(torch.argmin(vals))
+        v = float(vals[i])
+        if v < best_v:
+            best_v, incumbent = v, cand[i]
+    return best_v, incumbent.cpu().numpy()
 
 
 tabu_search_batched.calls = 0

@@ -4,7 +4,8 @@ bf16 (tensor-core) and float32 (CUDA-core) kernels of ssm_scan and
 mlstm_chunk against each other, the bf16 flash kernel against
 scaled_dot_product_attention, the reduced zamba2 and xlstm models on CUDA
 against the same models on the CPU, and the device search on CUDA against
-the same search on the CPU.
+the same search on the CPU (both regimes, the greedy init and the
+contention-aware fleet search).
 Marked `cuda`; each skips with a reason where torch sees no CUDA device.
 Run them on a GPU machine with
 
@@ -105,6 +106,63 @@ def test_device_search_cuda_matches_cpu(cuda, objective, fleet):
     for a, b in zip(a_gpu, a_cpu):
         np.testing.assert_array_equal(a, b)
     np.testing.assert_array_equal(v_gpu, v_cpu)
+
+
+def _int_jobs(rng, n):
+    return [port_sim.JobSpec(name=f"J{i}", release=float(rng.integers(0, 20)),
+                             weight=float(rng.integers(1, 4)),
+                             proc={t: float(rng.integers(1, 25))
+                                   for t in (CC, ES, ED)},
+                             trans={CC: float(rng.integers(0, 40)),
+                                    ES: float(rng.integers(0, 10)), ED: 0.0})
+            for i in range(n)]
+
+
+@pytest.mark.parametrize("initial", [True, False], ids=["explicit", "greedy"])
+@pytest.mark.parametrize("fleet", [(1, 1), (2, 3)], ids=["1x1", "2x3"])
+@pytest.mark.parametrize("objective", ["weighted", "unweighted", "last"])
+def test_pass_regime_and_greedy_cuda_match_cpu(cuda, objective, fleet,
+                                               initial):
+    """Ragged wards padded to 4 x their movable bucket (the pass regime);
+    with an explicit initial, 30 % frozen and 3 + 3 reservations."""
+    rng = np.random.default_rng(11)
+    sizes = (16, 11, 6)
+    jobs = [_int_jobs(rng, n) for n in sizes]
+    kw = dict(objective=objective, machines_per_tier=fleet, pad_to=64)
+    init = None
+    if initial:
+        init = [[int(x) for x in rng.integers(0, 3, n)] for n in sizes]
+        kw["frozen"] = [list(rng.random(n) < 0.3) for n in sizes]
+        kw["reserved"] = [{t: [port_sim.Reservation(
+            arrival=float(r + rng.integers(0, 40)),
+            proc=float(rng.integers(1, 25)), release=float(r), weight=1.0)
+            for r in rng.integers(0, 20, 3)] for t in (CC, ES)}
+            for _ in sizes]
+    v_cpu, a_cpu = scheduler_torch.tabu_search_batched(jobs, init,
+                                                       device="cpu", **kw)
+    v_gpu, a_gpu = scheduler_torch.tabu_search_batched(jobs, init,
+                                                       device=cuda, **kw)
+    for a, b in zip(a_gpu, a_cpu):
+        np.testing.assert_array_equal(a, b)
+    np.testing.assert_array_equal(v_gpu, v_cpu)
+
+
+def test_search_fleet_cuda_matches_cpu(cuda):
+    from repro_torch.core import problems, scheduler
+    wards = []
+    for i in range(4):
+        jobs = problems.metro_jobs(np.random.default_rng(24 + i), n=10)
+        wards.append([type(j)(name=j.name, release=float(round(j.release)),
+                              weight=j.weight, proc=j.proc, trans=j.trans)
+                      for j in jobs])
+    mpt = {CC: 2, ES: 1}
+    got = scheduler.search_fleet(wards, machines_per_tier=mpt, device=cuda)
+    ref = scheduler.search_fleet(wards, machines_per_tier=mpt, device="cpu")
+    assert got.assignments == ref.assignments
+    assert got.naive_assignments == ref.naive_assignments
+    assert (got.sweeps, got.naive_reported) == (ref.sweeps,
+                                                ref.naive_reported)
+    assert got.fleet.weighted_sum == ref.fleet.weighted_sum
 
 
 # tests/test_kernels.py::ATTN_CASES, then zamba2's prefill shape, ragged
