@@ -32,6 +32,13 @@ Phases, each of which raises on failure:
      d. `repro_torch.launch.serve.run_wards(wards=32, patients=100)` on a
         4 + 2 fleet, independent and with contention (calibration:
         lstm_sequence; planning: the batched device search);
+     e. `repro_torch.launch.serve.run_metro` on the chaos packs at their
+        canonical shapes, each tabu event log held to the CRC the
+        reference committed in BENCH_scheduler.json, the four-ward replans
+        on the batched device search; the default pack (cut to
+        METRO_DEFAULT_HOURS) under tabu and fleet, identical on CUDA and
+        on the host CPU; one pack with check_determinism and sanitize (no
+        kernel of the four: metro builds its jobs from `metro_costs`);
   7. timings with CUDA events (and by CUDA-graph replay, the device time
      alone, for each kernel at its main-path shape), each printed beside
      the card's name and power limit, and for ssm_scan and
@@ -39,9 +46,11 @@ Phases, each of which raises on failure:
      the tensor-core (HMMA) instructions in each kernel's SASS; the
      schedule searches on CUDA, on the host CPU and in Python (host clock
      after a synchronise), and the device search's kernel launches per
-     pass-regime sweep (torch.profiler);
-  8. one more run of each main path under torch.profiler: device busy
-     share and the kernels that take the device's time.
+     pass-regime sweep (torch.profiler); the metro engine's events/s on
+     CUDA and on the host CPU (phase 6e's runs);
+  8. one more run of each main path under torch.profiler (metro: the
+     tabu run of mass_casualty_crash): device busy share and the kernels
+     that take the device's time.
 The second-to-last line is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. Without a CUDA device, or
 without the rest of the checkout, the script exits non-zero and prints no
@@ -146,6 +155,17 @@ FLEET_TIMED_WARDS = 4
 BATCHED_TIMED_N = (100, 1000)   # search_batched's instance sizes
 FLEET_TIMED_BUDGET = dict(max_count=5, max_sweeps=4)
 PYTHON_ONLY = 10 ** 9           # a search threshold no instance reaches
+# metro (phase 6e): the chaos packs at their canonical shapes, held to the
+# event-log CRCs the reference committed in BENCH_scheduler.json (its bench
+# pins the single-ward search to Python, as here); the tabu replans of
+# mass_casualty_crash and degraded_network batch 4 wards onto the device
+# search. The default pack runs on CUDA and on the host CPU at a cut
+# horizon (METRO_DEFAULT_HOURS of its canonical 2 h)
+METRO_PACKS = ("edge_brownout", "mass_casualty_crash", "degraded_network",
+               "diurnal_day")
+METRO_BATCHED_PACKS = ("mass_casualty_crash", "degraded_network")
+METRO_POLICIES = ("greedy", "tabu", "shed")
+METRO_DEFAULT_HOURS = 1.0
 SLOW_RUN_S = 20.0               # a timing whose first run takes longer is
                                 # reported from that one run
 
@@ -829,6 +849,136 @@ def drive_fleet(torch, kernels, card):
     return fleet_runs
 
 
+def committed_metro_crcs():
+    """{run label: event-log CRC} as the reference's benchmark committed
+    them (a data file, read with json)."""
+    bench = json.loads((ROOT / "BENCH_scheduler.json").read_text())
+    out = {pack: bench["metro_scenarios"][pack]["event_log_hash_tabu"]
+           for pack in METRO_PACKS}
+    for hedged in (False, True):
+        key = "hedged" if hedged else "unhedged"
+        out[f"fail_slow_tail {key}"] = \
+            bench["metro_hedging"][f"event_log_hash_{key}"]
+    return out
+
+
+def metro_summary_line(label, res, seconds):
+    """One line per policy run: events, events/s, device searches and
+    the event-log CRC."""
+    return (f"{label}: {res['events']} events, "
+            f"{res['events_per_s']:.1f} events/s (engine clock; the "
+            f"run_metro call with all its policies {seconds:.3f} s), "
+            f"device searches {res['device_searches']}, miss rate "
+            f"{res['miss_rate']:.4f}, crc {res['event_log_hash']}")
+
+
+def drive_metro(torch, kernels, card):
+    """Phase 6e: `serve.run_metro` on the card, every counter read around
+    the whole phase alone. (a) each chaos pack (and fail_slow_tail
+    hedged and unhedged under tabu) gives the reference's committed
+    event-log CRC; (b) the default pack under tabu and fleet gives the
+    same event log on CUDA and as torch on the host CPU; (c) one pack
+    with check_determinism and sanitize on CUDA. Returns {label: (events
+    per s on CUDA, events per s on the host CPU or None, device
+    searches)} for phase 7."""
+    from repro_torch.core import scheduler_torch
+    from repro_torch.launch import serve
+
+    want = committed_metro_crcs()
+    for k in kernels.values():
+        k.launches = 0
+    scheduler_torch.tabu_search_batched.calls = 0
+    rates, bad = {}, []
+
+    def timed(**kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = serve.run_metro(verbose=False, **kw)
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0
+
+    # (a) the committed CRCs, single-ward search pinned to Python as the
+    # reference's benchmark pins it
+    runs = [(pack, dict(scenario=pack, policies=METRO_POLICIES))
+            for pack in METRO_PACKS]
+    runs += [(f"fail_slow_tail {'hedged' if h else 'unhedged'}",
+              dict(scenario="fail_slow_tail", policies=("tabu",), hedge=h))
+             for h in (False, True)]
+    for label, kw in runs:
+        out, secs = timed(device_threshold=PYTHON_ONLY, device="cuda", **kw)
+        for name, res in out.items():
+            print(metro_summary_line(f"metro {label} {name} cuda", res,
+                                     secs))
+        tabu = out["tabu"]
+        ok = tabu["event_log_hash"] == want[label]
+        print(f"metro {label}: tabu crc {tabu['event_log_hash']}, "
+              f"committed {want[label]}, equal={ok}")
+        if not ok:
+            bad.append(f"{label}: crc {tabu['event_log_hash']} != "
+                       f"{want[label]}")
+        on_cpu = None
+        if label in METRO_BATCHED_PACKS:
+            if tabu["device_searches"] < 1:
+                bad.append(f"{label}: no batched device search on the card")
+            # the same tabu run as torch on the host CPU, for phase 7
+            cpu_out, cpu_secs = timed(device_threshold=PYTHON_ONLY,
+                                      device="cpu", scenario=label,
+                                      policies=("tabu",))
+            print(metro_summary_line(f"metro {label} tabu cpu",
+                                     cpu_out["tabu"], cpu_secs))
+            if cpu_out["tabu"]["event_log_hash"] != want[label]:
+                bad.append(f"{label}: host cpu crc differs")
+            on_cpu = cpu_out["tabu"]["events_per_s"]
+        rates[label] = (tabu["events_per_s"], on_cpu,
+                        tabu["device_searches"])
+
+    # (b) the default pack, cut to METRO_DEFAULT_HOURS: CUDA and torch on
+    # the host CPU with the same pinned single-ward dispatch
+    for policy in ("tabu", "fleet"):
+        got = {}
+        for dev in ("cuda", "cpu"):
+            out, secs = timed(scenario="default", policies=(policy,),
+                              hours=METRO_DEFAULT_HOURS,
+                              device_threshold=PYTHON_ONLY, device=dev)
+            got[dev] = out[policy]
+            print(metro_summary_line(
+                f"[{card}] metro default {METRO_DEFAULT_HOURS:g} h "
+                f"{policy} {dev}", got[dev], secs))
+        same = {k: v for k, v in got["cuda"].items()
+                if k not in ("seconds", "events_per_s")} == \
+            {k: v for k, v in got["cpu"].items()
+             if k not in ("seconds", "events_per_s")}
+        print(f"metro default {policy}: cuda and cpu summaries and "
+              f"event-log crc identical={same}")
+        if not same or got["cuda"]["device_searches"] < 1:
+            bad.append(f"default {policy}: identical={same}, device "
+                       f"searches {got['cuda']['device_searches']}")
+        rates[f"default {METRO_DEFAULT_HOURS:g} h {policy}"] = (
+            got["cuda"]["events_per_s"], got["cpu"]["events_per_s"],
+            got["cuda"]["device_searches"])
+
+    # (c) determinism and the runtime sanitizer on the card
+    out, secs = timed(scenario="mass_casualty_crash",
+                      policies=METRO_POLICIES, check_determinism=True,
+                      sanitize=True, device="cuda")
+    ok = out["tabu"]["event_log_hash"] == want["mass_casualty_crash"]
+    print(f"metro mass_casualty_crash check_determinism + sanitize on "
+          f"cuda: {len(out)} policies x 2 runs bit-identical, no "
+          f"violation, tabu crc equal to committed={ok} ({secs:.2f} s)")
+    if not ok:
+        bad.append("check_determinism run: crc differs")
+
+    launched = {name: k.launches for name, k in kernels.items()}
+    calls = scheduler_torch.tabu_search_batched.calls
+    print(f"metro phase: kernel launches {launched}, device-search calls "
+          f"{calls}")
+    if any(launched.values()) or calls < 1:
+        bad.append(f"launches {launched}, {calls} device-search calls")
+    if bad:
+        raise RuntimeError("metro: " + "; ".join(bad))
+    return rates
+
+
 def time_fleet(torch, cuda, card):
     """Phase 7's fleet planning timings (search_batched, search_fleet)
     on `cuda`, torch on the host CPU and the Python search, and the
@@ -1243,6 +1393,9 @@ def main():
     # 6d. the fleet path (its counters read around each run alone)
     fleet_runs = drive_fleet(torch, kernels, card)
 
+    # 6e. the metro engine (its counters read around the phase alone)
+    metro_rates = drive_metro(torch, kernels, card)
+
     # main-path lstm_sequence launches per (B, I, H): calibrate runs two
     # inferences of CALIBRATE_RECORDS per workload, execution one of
     # EXECUTE_RECORDS per job, each one launch per layer
@@ -1449,6 +1602,15 @@ def main():
 
     time_fleet(torch, cuda, card)
 
+    # the metro engine's throughput (engine clock, phase 6e's runs): the
+    # tabu run of each pack on CUDA, and the default pack's cut runs on
+    # CUDA and as torch on the host CPU
+    for label, (on_cuda, on_cpu, searches) in metro_rates.items():
+        cpu_part = ("" if on_cpu is None
+                    else f", host cpu {on_cpu:.1f} events/s")
+        print(f"[{card}] metro {label}: cuda {on_cuda:.1f} events/s"
+              f"{cpu_part}, {searches} device searches")
+
     # 8. where the time goes: one more main-path run under torch.profiler
     # (its counters are not read); device busy share = summed device self
     # time over the traced run's wall time, which the tracing inflates
@@ -1462,6 +1624,18 @@ def main():
         traced_s = time.perf_counter() - t0
     print_profile(prof, f"[{card}] traced serve.run(patients="
                   f"{SERVE_PATIENTS})", traced_s, 8)
+    # the metro path: the tabu run of the pack whose four-ward replans
+    # take the most batched device searches
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        serve.run_metro(scenario=METRO_BATCHED_PACKS[0], policies=("tabu",),
+                        device_threshold=PYTHON_ONLY, device="cuda",
+                        verbose=False)
+        torch.cuda.synchronize()
+        traced_s = time.perf_counter() - t0
+    print_profile(prof, f"[{card}] traced run_metro({METRO_BATCHED_PACKS[0]}"
+                  f", tabu)", traced_s, 8)
     trace_generate(torch, zengine, zbatch, "zamba2-2.7b", card)
     trace_generate(torch, xengine, xbatch, "xlstm-350m", card)
 

@@ -19,11 +19,16 @@ times under our allocation vs the paper's four baseline strategies.
   python -m repro_torch.launch.serve --wards 32 --contention
                                                       # plans against one
                                                       # shared cloud
+  python -m repro_torch.launch.serve --metro          # streaming metro load:
+                                                      # hours of episodes vs
+                                                      # failures, policy
+                                                      # table
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
 import time
 import zlib
 
@@ -257,6 +262,203 @@ def run_wards(wards=4, patients=10, horizon=30.0, seed=0,
     return schedules, seconds
 
 
+def _trace_path(base: str, policy: str, multi: bool) -> str:
+    """Per-policy trace file name: the given path verbatim for a single
+    policy, `name.<policy>.ext` when several policies share one run."""
+    if not multi:
+        return base
+    root, dot, ext = base.rpartition(".")
+    return f"{root}.{policy}.{ext}" if dot else f"{base}.{policy}"
+
+
+def run_metro(wards=None, hours=None, seed=0, cloud_machines=2,
+              edge_machines=2, policies=("greedy", "tabu", "fleet"),
+              verbose=True, device_threshold=None, scenario="default",
+              check_determinism=False, hedge=False, hedge_factor=1.5,
+              retry_backoff=0.0, max_attempts=None, sanitize=False,
+              trace=None, trace_format="jsonl", postmortem=False,
+              postmortem_out=None, metrics_out=None, device=None):
+    """Metro traffic mode (DESIGN.md §10-§11): streaming patient-episode
+    traffic over a ward fleet sharing one metropolitan cloud, replayed
+    under each policy on identical traces, failures (drain or crash),
+    fail-slow slowdown windows, degraded-network windows and
+    elastic-capacity events. `scenario` names a chaos pack from
+    `metro.traces.SCENARIO_PACKS`; `wards` and `hours` default to the
+    pack's canonical shape. Prints the policy comparison (p50/p99
+    response, SLA miss-rate overall / life-critical / shed, per-tier
+    utilisation with the crash-retry and wasted-work counts broken out
+    per tier, engine events/s) and returns {policy: summary dict}.
+
+    device: where the search policies' device searches run (default
+    "cuda"; raises without a CUDA device unless device="cpu"). Replans
+    of four or more wards at one event go through the batched device
+    search whatever `device_threshold` says; device_threshold pins the
+    single-ward dispatch. Each summary's `device_searches` counts the
+    batched device searches of that policy's run.
+
+    hedge=True wraps every policy in the deadline-aware HedgingPolicy
+    and arms the engine's straggler watchdog at `hedge_factor` x the
+    committed proc time (DESIGN.md §13); the table gains hedge/win/
+    hedge-waste columns. retry_backoff / max_attempts bound crash
+    retries (exponential backoff, shed-with-record past the cap).
+
+    sanitize=True arms the engine's runtime invariant sanitizer
+    (DESIGN.md §14) on every run; the run fails on the first violation.
+    The sanitizer is read-only, so sanitized event logs hash
+    bit-identically.
+
+    check_determinism=True replays every policy twice on a fresh engine
+    and raises unless the event logs hash identically — the seeded-chaos
+    determinism contract (DESIGN.md §11). The single-ward search is
+    pinned to the Python path when no device_threshold is given. The
+    verification rerun is UNTRACED, so with `trace` set the hash
+    comparison doubles as a traced-vs-untraced CRC-parity check
+    (DESIGN.md §15).
+
+    trace=PATH arms the flight recorder (DESIGN.md §15) and writes each
+    policy's span stream there — `trace_format` "jsonl" (one span per
+    line) or "chrome" (trace-event JSON, opens in Perfetto); several
+    policies write `name.<policy>.ext` each. postmortem=True prints the
+    deadline-miss blame table plus the engine self-profile;
+    postmortem_out=PATH exports the same as JSON. metrics_out=PATH dumps
+    the full per-policy summary dicts as JSON.
+
+    One trace time unit reads as one minute; episodes are the paper's
+    three-app cascade with per-class response deadlines
+    (metro.traces.EPISODE_STAGES)."""
+    from repro_torch.core import scheduler_torch
+    from repro_torch.metro import (HedgingPolicy, make_policy,
+                                   simulate_metro, traces)
+
+    dev = resolve_device(device)
+    if check_determinism and device_threshold is None:
+        device_threshold = 10 ** 9       # always the Python search path
+    horizon = None if hours is None else hours * 60.0
+    sc = traces.make_scenario(scenario, seed, wards=wards, horizon=horizon)
+    wards = len(sc.traces)
+    mpt = {CC: cloud_machines, ES: edge_machines}
+    # fleet's joint fixed point gets small per-event budgets: each event
+    # only needs local repair on top of the previous one (DESIGN.md §10).
+    # greedy/shed never search, so only the replanning policies take the
+    # device and the dispatch pin
+    kwargs = {"fleet": dict(max_count=2, max_sweeps=1,
+                            device_threshold=device_threshold, device=dev),
+              "tabu": dict(device_threshold=device_threshold, device=dev)}
+
+    want_trace = trace is not None or postmortem or \
+        postmortem_out is not None
+    want_profile = postmortem or postmortem_out is not None
+
+    def one_run(name, traced=False):
+        # a fresh policy per run: policies may carry stream state (the
+        # shedding wrapper's running max weight, the hedging wrapper's)
+        pol = make_policy(name, **kwargs.get(name, {}))
+        eng_kw = {}
+        if hedge:
+            pol = HedgingPolicy(inner=pol)
+            eng_kw["hedge_factor"] = hedge_factor
+        return simulate_metro(
+            sc.traces, pol, machines_per_tier=mpt, failures=sc.failures,
+            scale_events=sc.scales, network_events=sc.network,
+            slowdowns=sc.slowdowns, retry_backoff=retry_backoff,
+            max_attempts=max_attempts, sanitize=sanitize,
+            trace=traced, profile=traced and want_profile, **eng_kw)
+
+    if verbose:
+        kills = sum(f.kill_running for f in sc.failures)
+        print(f"metro[{sc.name}]: {wards} wards, {sc.jobs} episode-stage "
+              f"jobs, {len(sc.failures)} failures ({kills} crash), "
+              f"{len(sc.slowdowns)} slowdown windows, "
+              f"{len(sc.scales)} scale events, {len(sc.network)} network "
+              f"windows, fleet {cloud_machines}c/{edge_machines}e per ward"
+              + (f", hedging at {hedge_factor:g}x" if hedge else "")
+              + f", device {dev}")
+        hedge_cols = (f" {'hedge':>5s} {'win':>4s} {'hwaste':>6s}"
+                      if hedge else "")
+        print(f"{'policy':8s} {'p50':>6s} {'p95':>6s} {'p99':>6s} "
+              f"{'p99.9':>6s} {'miss%':>6s} {'crit%':>6s} {'shed%':>6s} "
+              f"{'cloud':>6s} {'rtry':>4s} {'waste':>6s} "
+              f"{'edge':>6s} {'rtry':>4s} {'waste':>6s}"
+              f"{hedge_cols} {'events/s':>9s} {'dsearch':>7s}")
+    out = {}
+    traced_runs = {}
+    for name in policies:
+        calls0 = scheduler_torch.tabu_search_batched.calls
+        res = one_run(name, traced=want_trace)
+        calls = scheduler_torch.tabu_search_batched.calls - calls0
+        log_hash = zlib.crc32(repr(res.event_log).encode())
+        if check_determinism:
+            rerun_hash = zlib.crc32(repr(one_run(name).event_log).encode())
+            if rerun_hash != log_hash:
+                raise AssertionError(
+                    f"metro[{sc.name}]/{name}: event log not "
+                    f"deterministic across reruns ({log_hash:#x} vs "
+                    f"{rerun_hash:#x})")
+        s = res.summary()
+        s["event_log_hash"] = log_hash
+        # batched device searches of this policy's (first) run
+        s["device_searches"] = calls
+        out[name] = s
+        if res.trace is not None:
+            traced_runs[name] = res
+        if verbose:
+            util = s["utilization"]
+            rbt, wbt = s["retries_by_tier"], s["wasted_by_tier"]
+            hedge_cells = (f" {s['hedges']:5d} {s['hedge_wins']:4d} "
+                           f"{s['hedge_waste']:6.1f}" if hedge else "")
+            print(f"{name:8s} {s['p50']:6.1f} {s['p95']:6.1f} "
+                  f"{s['p99']:6.1f} {s['p999']:6.1f} "
+                  f"{s['miss_rate']:6.2%} "
+                  f"{s['critical_miss_rate']:6.2%} {s['shed_rate']:6.2%} "
+                  f"{util.get('cloud', 0.0):6.1%} "
+                  f"{rbt.get('cloud', 0):4d} {wbt.get('cloud', 0.0):6.1f} "
+                  f"{util.get('edge', 0.0):6.1%} "
+                  f"{rbt.get('edge', 0):4d} {wbt.get('edge', 0.0):6.1f}"
+                  f"{hedge_cells} "
+                  f"{s['events_per_s']:9.0f} {calls:7d}")
+    if verbose and check_determinism:
+        print(f"determinism: {len(out)} policies x 2 runs, event logs "
+              f"bit-identical")
+    if verbose and "greedy" in out and "tabu" in out:
+        # the ratio is vacuous when greedy itself misses nothing, and a
+        # perfect tabu run is floored at half a missed job
+        g, t = out["greedy"]["miss_rate"], out["tabu"]["miss_rate"]
+        if g == 0:
+            print("tabu-replan miss-rate improvement vs greedy: vacuous "
+                  "(greedy missed no deadlines)")
+        else:
+            jobs_done = max(out["greedy"]["completions"], 1)
+            print(f"tabu-replan miss-rate improvement vs greedy: "
+                  f"{g / max(t, 0.5 / jobs_done):.2f}x")
+    if trace is not None:
+        multi = len(traced_runs) > 1
+        for name, res in traced_runs.items():
+            path = _trace_path(trace, name, multi)
+            n = res.trace.write(path, trace_format)
+            if verbose:
+                unit = "events" if trace_format == "chrome" else "spans"
+                print(f"trace[{name}]: {n} {unit} ({trace_format}) "
+                      f"-> {path}")
+    if postmortem and verbose:
+        for name, res in traced_runs.items():
+            print(res.trace.format_postmortem(
+                name, res.profile, out[name]["device_searches"]))
+    if postmortem_out is not None:
+        report = {name: res.trace.postmortem_json(
+            name, res.profile, out[name]["device_searches"])
+            for name, res in traced_runs.items()}
+        with open(postmortem_out, "w") as f:
+            json.dump(report, f, indent=2)
+        if verbose:
+            print(f"postmortem JSON -> {postmortem_out}")
+    if metrics_out is not None:
+        with open(metrics_out, "w") as f:
+            json.dump(out, f, indent=2)
+        if verbose:
+            print(f"metrics JSON -> {metrics_out}")
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--patients", type=int, default=10)
@@ -284,9 +486,84 @@ def main(argv=None):
                          "contention-aware fixed-point search; reports "
                          "naive vs fleet-true scores and the gap "
                          "(DESIGN.md §9)")
+    ap.add_argument("--metro", action="store_true",
+                    help="streaming metro traffic mode: hours of "
+                         "patient-episode load over a shared-cloud ward "
+                         "fleet with failures and elastic capacity, "
+                         "compared across replanning policies "
+                         "(DESIGN.md §10)")
+    ap.add_argument("--metro-hours", type=float, default=None,
+                    help="simulated hours of metro traffic (default: the "
+                         "scenario pack's canonical horizon)")
+    ap.add_argument("--scenario", default="default",
+                    help="chaos scenario pack for --metro "
+                         "(metro.traces.SCENARIO_PACKS: default, "
+                         "edge_brownout, mass_casualty_crash, "
+                         "degraded_network, diurnal_day, fail_slow_tail)")
+    ap.add_argument("--hedge", action="store_true",
+                    help="with --metro: wrap every policy in the "
+                         "deadline-aware hedging wrapper and arm the "
+                         "straggler watchdog (DESIGN.md §13)")
+    ap.add_argument("--hedge-factor", type=float, default=1.5,
+                    help="watchdog threshold: hedge once elapsed runtime "
+                         "exceeds this multiple of the committed proc "
+                         "time (default 1.5)")
+    ap.add_argument("--retry-backoff", type=float, default=0.0,
+                    help="base delay for exponential crash-retry backoff "
+                         "(0 = immediate re-dispatch)")
+    ap.add_argument("--max-attempts", type=int, default=None,
+                    help="cap on attempts per job; past it the job is "
+                         "shed-with-record (default: unbounded)")
+    ap.add_argument("--metro-policies", default="greedy,tabu,fleet",
+                    help="comma-separated policy list for --metro "
+                         "(greedy, tabu, fleet, shed)")
+    ap.add_argument("--check-determinism", action="store_true",
+                    help="with --metro: run every policy twice and fail "
+                         "unless the event logs are bit-identical "
+                         "(DESIGN.md §11)")
+    ap.add_argument("--sanitize", action="store_true",
+                    help="with --metro: run the engine with the runtime "
+                         "invariant sanitizer armed (DESIGN.md §14); "
+                         "fails on the first violation")
+    ap.add_argument("--trace", default=None, metavar="PATH",
+                    help="with --metro: arm the flight recorder and "
+                         "write per-job span streams here (per-policy "
+                         "suffix when several policies run — "
+                         "DESIGN.md §15)")
+    ap.add_argument("--trace-format", choices=("jsonl", "chrome"),
+                    default="jsonl",
+                    help="trace file format: jsonl spans, or Chrome "
+                         "trace-event JSON for Perfetto/chrome://tracing")
+    ap.add_argument("--postmortem", action="store_true",
+                    help="with --metro: print the deadline-miss blame "
+                         "table and the engine self-profile")
+    ap.add_argument("--postmortem-out", default=None, metavar="PATH",
+                    help="write the postmortem attribution report "
+                         "(per-job terms, blame table, profile) as JSON")
+    ap.add_argument("--metrics-out", default=None, metavar="PATH",
+                    help="with --metro: dump the full per-policy "
+                         "MetroMetrics.summary() dicts as JSON")
     args = ap.parse_args(argv)
     if args.contention and args.wards <= 0:
         ap.error("--contention requires --wards N (N > 0)")
+    if args.metro:
+        return run_metro(wards=args.wards or None, hours=args.metro_hours,
+                         seed=args.seed,
+                         cloud_machines=args.cloud_machines or 2,
+                         edge_machines=args.edge_machines or 2,
+                         policies=tuple(
+                             p for p in args.metro_policies.split(",") if p),
+                         device_threshold=args.device_threshold,
+                         scenario=args.scenario,
+                         check_determinism=args.check_determinism,
+                         hedge=args.hedge, hedge_factor=args.hedge_factor,
+                         retry_backoff=args.retry_backoff,
+                         max_attempts=args.max_attempts,
+                         sanitize=args.sanitize,
+                         trace=args.trace, trace_format=args.trace_format,
+                         postmortem=args.postmortem,
+                         postmortem_out=args.postmortem_out,
+                         metrics_out=args.metrics_out, device=args.device)
     if args.wards > 0:
         return run_wards(wards=args.wards, patients=args.patients,
                          horizon=args.horizon, seed=args.seed,

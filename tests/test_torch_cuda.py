@@ -5,7 +5,9 @@ mlstm_chunk against each other, the bf16 flash kernel against
 scaled_dot_product_attention, the reduced zamba2 and xlstm models on CUDA
 against the same models on the CPU, and the device search on CUDA against
 the same search on the CPU (both regimes, the greedy init and the
-contention-aware fleet search).
+contention-aware fleet search), and the metro engine on CUDA: a chaos pack
+to the reference's committed event-log CRC, and the default pack's fleet
+policy identical on CUDA and on the CPU.
 Marked `cuda`; each skips with a reason where torch sees no CUDA device.
 Run them on a GPU machine with
 
@@ -394,3 +396,33 @@ def _to(tree, device):
     if isinstance(tree, dict):
         return {k: _to(v, device) for k, v in tree.items()}
     return tree.to(device)
+
+
+def test_metro_crash_pack_gives_the_committed_crc_on_cuda(cuda):
+    import json
+    from pathlib import Path
+
+    from repro_torch.launch import serve
+    bench = json.loads((Path(__file__).resolve().parents[1]
+                        / "BENCH_scheduler.json").read_text())
+    before = scheduler_torch.tabu_search_batched.calls
+    out = serve.run_metro(scenario="mass_casualty_crash",
+                          policies=("tabu",), device_threshold=10 ** 9,
+                          device=cuda, verbose=False)
+    assert out["tabu"]["event_log_hash"] == \
+        bench["metro_scenarios"]["mass_casualty_crash"]["event_log_hash_tabu"]
+    assert out["tabu"]["device_searches"] == 7 == \
+        scheduler_torch.tabu_search_batched.calls - before
+
+
+def test_metro_default_fleet_cuda_matches_cpu(cuda):
+    from repro_torch.launch import serve
+    out = {dev: serve.run_metro(scenario="default", policies=("fleet",),
+                                hours=0.5, device_threshold=10 ** 9,
+                                device=dev, verbose=False)["fleet"]
+           for dev in (cuda, "cpu")}
+    assert out[cuda]["device_searches"] > 0
+    for s in out.values():
+        s.pop("seconds")
+        s.pop("events_per_s")
+    assert out[cuda] == out["cpu"]

@@ -26,6 +26,25 @@ def test_serve_import_loads_neither_jax_nor_repro():
     assert out.stdout.strip() == ""
 
 
+def test_metro_run_loads_neither_jax_nor_repro():
+    """The metro package and a whole run_metro (its lazy imports: the
+    sanitizer, the tracer, the profile's search counter) stay clear of
+    jax and repro."""
+    code = ("import sys, repro_torch.metro, repro_torch.launch.serve as s\n"
+            "s.run_metro(scenario='diurnal_day', hours=2.0, verbose=False,"
+            " policies=('greedy', 'tabu', 'fleet'), device='cpu',"
+            " device_threshold=10**9, sanitize=True, postmortem=True)\n"
+            "bad = sorted(m for m in sys.modules if m == 'jax' or "
+            "m.startswith('jax.') or m == 'repro' or "
+            "m.startswith('repro.'))\n"
+            "print(','.join(bad))\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120,
+                         check=True)
+    assert out.stdout.strip() == ""
+
+
 def _imports(path):
     for node in ast.walk(ast.parse(path.read_text(), str(path))):
         if isinstance(node, ast.Import):
