@@ -10,11 +10,19 @@ Phases, each of which raises on failure:
      and lstm_sequence kernels, flash_attention, ssm_scan, mlstm_chunk),
      from this checkout, all nvcc processes at once;
   3. each kernel against its plain PyTorch version on the card, at its
-     test shapes and at the shapes the main paths give it;
+     test shapes and at the shapes the main paths give it (lstm_cell and
+     lstm_sequence also on bf16 inputs; flash_attention also with more
+     queries than keys);
   4. the ICU LSTM models (depth 1, and depth 2, which passes a hidden
      sequence between layers), and zamba2 and xlstm-350m at full width
      with one group, on the card (kernel path) against the same models on
-     the CPU (plain path);
+     the CPU (plain path); then, on noised parameters, gemma2-27b (local
+     + global, window cut to 64, 8 decode steps through the ring buffer,
+     also held to teacher forcing), qwen2-1.5b with the int8 KV cache,
+     one mixtral-8x7b MoE layer (router flips reported with their
+     margins), llama-3.2-vision-11b's group (4 ATTN + CROSS) and
+     seamless-m4t-large-v2 (one encoder and one decoder layer), all at
+     full width in float32;
   5. the device tabu search on CUDA against the same search on the CPU,
      identical on integer instances: the round regime, the pass regime
      (background-heavy ragged batches with frozen jobs and reservations),
@@ -39,9 +47,20 @@ Phases, each of which raises on failure:
         METRO_DEFAULT_HOURS) under tabu and fleet, identical on CUDA and
         on the host CPU; one pack with check_determinism and sanitize (no
         kernel of the four: metro builds its jobs from `metro_costs`);
+     f. the rest of the LLM zoo, each `ServingEngine(build_model(cfg),
+        device="cuda").generate(make_batch(cfg, 4, 512), steps=32)` at
+        full width in bf16 with random weights drawn on the card (the
+        earlier engines freed first): gemma2-27b at full depth (46 flash
+        launches per prefill), then on one prompt of 4608 tokens (the
+        window bites, decode wraps the 4096-slot ring); gemma-2b;
+        qwen2-1.5b native and with the int8 KV cache; mixtral-8x7b at 8
+        of its 32 layers (full depth does not fit one card);
+        llama-3.2-vision-11b; seamless-m4t-large-v2 (flash_attention);
   7. timings with CUDA events (and by CUDA-graph replay, the device time
      alone, for each kernel at its main-path shape), each printed beside
-     the card's name and power limit, and for ssm_scan and
+     the card's name and power limit (flash_attention also at each of
+     phase 6f's prefill shapes, beside scaled_dot_product_attention
+     where it computes the same function), and for ssm_scan and
      mlstm_chunk the registers and spills `nvcc -Xptxas -v` reported and
      the tensor-core (HMMA) instructions in each kernel's SASS; the
      schedule searches on CUDA, on the host CPU and in Python (host clock
@@ -49,8 +68,9 @@ Phases, each of which raises on failure:
      pass-regime sweep (torch.profiler); the metro engine's events/s on
      CUDA and on the host CPU (phase 6e's runs);
   8. one more run of each main path under torch.profiler (metro: the
-     tabu run of mass_casualty_crash): device busy share and the kernels
-     that take the device's time.
+     tabu run of mass_casualty_crash; the LLM paths zamba2-2.7b,
+     xlstm-350m and gemma2-27b, traced while their engines are up):
+     device busy share and the kernels that take the device's time.
 The second-to-last line is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. Without a CUDA device, or
 without the rest of the checkout, the script exits non-zero and prints no
@@ -112,6 +132,13 @@ PADDED_ATTN = [(2, 4, 2, 200, 200, 40, True, None, None),
                (1, 32, 32, 1, 512, 80, True, None, None),
                (2, 32, 4, 300, 300, 80, True, 64, 30.0)]
 ATTN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+# bf16 flash, besides ATTN_TOL: every output row (one query's D values)
+# within this relative L2 distance of the plain row. The kernel's two bf16
+# roundings (P before P.V, the output) give a few 2^-9; with N(0, 1) inputs
+# a row's output shrinks as sqrt(e / live keys), so at 4096 keys ATTN_TOL's
+# atol is the size of a value, while one skipped 64-key tile moves a row
+# by about sqrt(64 / live keys), over 0.1 at every shape here
+FLASH_BF16_ROW_REL = 1e-2
 # ssm_scan: tests/test_kernels.py::SSM_CASES, zamba2's prefill shape and
 # two ragged shapes, (b, l, h, p, n). 3e-4 in f32 (tests/test_kernels.py); with x/b/c in
 # bf16, y is rounded to bf16 on output (2e-2) while the final state is
@@ -129,6 +156,69 @@ ONE_GROUP_TOL = 2e-3
 GEN_PROMPT = 512
 GEN_BATCH = 4
 GEN_STEPS = 32
+# phase 6f, the rest of the LLM zoo at full width, bf16: (config, changes,
+# flash_attention launches per prefill). mixtral-8x7b's 32 layers take
+# ~93 GB of bf16 and do not fit one card: depth cut to 8 of 32 (~23.8 GB)
+LLM_PATHS = [
+    ("gemma2-27b", {}, 46),
+    ("gemma-2b", {}, 18),
+    ("qwen2-1.5b", {}, 28),
+    ("qwen2-1.5b", {"kv_cache_dtype": "int8"}, 28),
+    ("mixtral-8x7b", {"num_layers": 8, "num_groups": 8}, 8),
+    ("llama-3.2-vision-11b", {}, 40),         # 32 self + 8 cross
+    ("seamless-m4t-large-v2", {}, 72),        # 24 encoder, 24 self, 24 cross
+]
+# gemma2-27b on one prompt longer than its 4096-token window: the window
+# bites in the local layers' prefill and decode wraps their ring buffer
+LONG_PROMPT = 4608
+# flash_attention at the shapes phase 6f's prefills give it (b, hq, hkv,
+# lq, lk, d, causal, window, softcap), and its launches per prefill there
+LLM_ATTN = {
+    "gemma2-27b local": ((4, 32, 16, 512, 512, 128, True, 4096, 50.0), 23),
+    "gemma2-27b global": ((4, 32, 16, 512, 512, 128, True, None, 50.0), 23),
+    "gemma2-27b local 4608": ((1, 32, 16, LONG_PROMPT, LONG_PROMPT, 128,
+                               True, 4096, 50.0), 23),
+    "gemma2-27b global 4608": ((1, 32, 16, LONG_PROMPT, LONG_PROMPT, 128,
+                                True, None, 50.0), 23),
+    "gemma-2b": ((4, 8, 1, 512, 512, 256, True, None, None), 18),
+    "qwen2-1.5b": ((4, 12, 2, 512, 512, 128, True, None, None), 28),
+    "mixtral-8x7b": ((4, 32, 8, 512, 512, 128, True, 4096, None), 8),
+    "llama-vision self": ((4, 32, 8, 512, 512, 128, True, None, None), 32),
+    "llama-vision cross": ((4, 32, 8, 512, 4096, 128, False, None, None), 8),
+    "seamless encoder": ((4, 16, 16, 1024, 1024, 64, False, None, None), 24),
+    "seamless self": ((4, 16, 16, 512, 512, 64, True, None, None), 24),
+    "seamless cross": ((4, 16, 16, 512, 1024, 64, False, None, None), 24),
+}
+# Lq > Lk (cross attention to fewer states than queries): the Pallas
+# kernel's negative query offset; tests/test_torch_attention.py's cases
+LQ_GT_LK_ATTN = [(2, 4, 2, 128, 16, 32, False, None, None),
+                 (1, 4, 4, 256, 128, 64, False, None, 50.0),
+                 (2, 4, 2, 256, 128, 32, True, None, None),
+                 (1, 2, 1, 256, 128, 64, True, 64, None),
+                 (1, 2, 2, 256, 128, 32, False, 32, None)]
+# lstm_cell / lstm_sequence on bf16 inputs (float32 math, h and c in
+# bf16): one bf16 rounding of h or c, as the other bf16 kernels' checks
+LSTM_BF16_TOL = 2e-2
+# the one-group checks of phase 4: seeded noise on every parameter leaf,
+# 5% of its std, or std NOISE_ZERO for a leaf at its constant init (norms,
+# biases) and NOISE_GATE for a scalar gate (llama-vision's gate_attn), so
+# that none sits at its init; the router flips of a float32 order (a
+# token's top-2 experts differ between card and CPU) below this margin
+NOISE_REL, NOISE_ZERO, NOISE_GATE = 0.05, 0.1, 1.0
+ROUTER_FLIP_MARGIN = 1e-5
+# config -> (changes, prompt (B, L), decode steps, flash launches per
+# prefill); prompts of 512 tokens unless the check needs another
+ONE_GROUP_CHECKS = {
+    "gemma2-27b": (dict(num_layers=2, num_groups=1, attn_window=64),
+                   (2, 128), 8, 2),
+    "qwen2-1.5b": (dict(num_layers=1, num_groups=1, kv_cache_dtype="int8"),
+                   (1, 512), 4, 1),
+    "mixtral-8x7b": (dict(num_layers=1, num_groups=1), (1, 512), 4, 1),
+    "llama-3.2-vision-11b": (dict(num_layers=5, num_groups=1), (1, 512), 4,
+                             5),
+    "seamless-m4t-large-v2": (dict(num_layers=1, num_groups=1,
+                                   encoder_layers=1), (1, 512), 4, 3),
+}
 # mlstm_chunk: tests/test_kernels.py::MLSTM_CASES, the reduced xlstm's
 # D = 128, xlstm-350m's prefill shape, two ragged lengths (the last chunk
 # of 64 cut short); (b, l, h, d). Tolerances of tests/test_kernels.py:
@@ -332,15 +422,43 @@ def tree_to(tree, device):
     return tree.to(device)
 
 
-def one_group_card_vs_cpu(torch, model, p_gpu, prompt, kernels, label):
-    """Prefill `prompt` and 4 greedy decode steps with `model` on the card
-    from `p_gpu` and on the CPU from a copy; raises unless every step's
-    logits agree within ONE_GROUP_TOL. Returns the largest error in
-    prefill and in decode, and the launches of each of `kernels` in
-    prefill and in decode."""
+def noised(torch, tree, seed):
+    """Add seeded noise to every floating leaf of `tree` in place, drawn
+    on each leaf's device: NOISE_REL of the leaf's std, or std NOISE_ZERO
+    for a leaf that is all zeros (norms, biases) and NOISE_GATE for a
+    scalar (a gate). Returns the tree."""
+    gens = {}
+    for t in leaves(tree):
+        if not t.is_floating_point():
+            continue
+        if t.device not in gens:
+            gens[t.device] = torch.Generator(t.device).manual_seed(seed)
+        if t.dim() == 0:
+            std = NOISE_GATE
+        elif not bool(t.any()):
+            std = NOISE_ZERO
+        else:
+            std = NOISE_REL * float(t.float().std())
+        t.add_((torch.randn(t.shape, generator=gens[t.device],
+                            device=t.device) * std).to(t.dtype))
+    return tree
+
+
+def one_group_card_vs_cpu(torch, model, p_gpu, prompt, kernels, label, *,
+                          extra=None, follow=None, steps=4, teacher=False):
+    """Prefill `prompt` (with the `extra` batch keys, vision embeddings or
+    frames) and `steps` decode steps with `model` on the card from `p_gpu`
+    and on the CPU from a copy; raises unless every step's logits agree
+    within ONE_GROUP_TOL. Decode feeds `follow` (B, steps) when given,
+    else the CPU's greedy tokens. With `teacher`, the card's prefill and
+    decode logits are also held to its own full-sequence forward over the
+    prompt and `follow` (teacher forcing). Returns the largest error in
+    prefill and in decode (and against teacher forcing, or None), and the
+    launches of each of `kernels` in prefill and in decode."""
     cuda = torch.device("cuda")
     p_cpu = tree_to(p_gpu, "cpu")
     plen = prompt.shape[1]
+    extra = extra or {}
     counts, errs = [], []
 
     def snap():
@@ -355,25 +473,131 @@ def one_group_card_vs_cpu(torch, model, p_gpu, prompt, kernels, label):
             raise RuntimeError(f"{label} {what}: card and CPU logits differ "
                                f"by {err}")
 
+    def batch(tokens, device):
+        return {"tokens": tokens.to(device),
+                **{k: v.to(device) for k, v in extra.items()}}
+
+    gpu_logits = []
     with torch.inference_mode():
         snap()
-        lg, cg = model.prefill(p_gpu, {"tokens": prompt.to(cuda)},
-                               max_len=plen + 4)
+        lg, cg = model.prefill(p_gpu, batch(prompt, cuda),
+                               max_len=plen + steps)
         torch.cuda.synchronize()
         snap()
-        lc, cc = model.prefill(p_cpu, {"tokens": prompt}, max_len=plen + 4)
+        lc, cc = model.prefill(p_cpu, batch(prompt, "cpu"),
+                               max_len=plen + steps)
         compare(lg, lc, "prefill")
-        tok = lc.argmax(-1)
-        for step in range(4):
+        gpu_logits.append(lg)
+        tok = follow[:, 0] if follow is not None else lc.argmax(-1)
+        for step in range(steps):
             lg, cg = model.decode_step(p_gpu, tok.to(cuda), cg)
             lc, cc = model.decode_step(p_cpu, tok, cc)
             compare(lg, lc, f"decode step {step}")
-            tok = lc.argmax(-1)
+            gpu_logits.append(lg)
+            if follow is not None and step + 1 < steps:
+                tok = follow[:, step + 1]
+            else:
+                tok = lc.argmax(-1)
         torch.cuda.synchronize()
         snap()
+        tf_err = None
+        if teacher:
+            # the forward's logits at positions plen - 1 .. plen + steps - 1
+            # predict what prefill and the decode steps predict
+            tokens = torch.cat([prompt, follow[:, :steps]], dim=1)
+            full, _ = model.forward(p_gpu, batch(tokens, cuda))
+            want = full[:, plen - 1:]
+            got = torch.stack(gpu_logits, dim=1)
+            tf_err = float((got - want).abs().max())
+            if not torch.allclose(got, want, atol=ONE_GROUP_TOL,
+                                  rtol=ONE_GROUP_TOL):
+                raise RuntimeError(f"{label}: prefill + decode and teacher "
+                                   f"forcing differ by {tf_err}")
     pre = tuple(b - a for a, b in zip(counts[0], counts[1]))
     dec = tuple(b - a for a, b in zip(counts[1], counts[2]))
-    return errs[0], max(errs[1:]), pre, dec
+    return errs[0], max(errs[1:]), tf_err, pre, dec
+
+
+def check_llm_one_group(torch, flash_attention, name):
+    """One of phase 4's checks of the LLM zoo (ONE_GROUP_CHECKS) at full
+    width with one group (or one layer), float32, card against CPU on the
+    same noised parameters (`noised`), at ONE_GROUP_TOL: gemma2-27b (local
+    + global) with its window cut to 64 so that it bites at 2 x 128
+    tokens, and 8 decode steps through the ring buffer, also held to
+    teacher forcing; qwen2-1.5b with the int8 KV cache; one mixtral-8x7b
+    MoE layer, with any token whose top-2 experts differ between card and
+    CPU reported beside its router margin; llama-3.2-vision-11b's group
+    (4 ATTN + CROSS); seamless-m4t-large-v2 with one encoder and one
+    decoder layer."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.models import blocks, build_model
+    cuda = torch.device("cuda")
+    k = list(ONE_GROUP_CHECKS).index(name)
+    change, shape, steps, flash_pre = ONE_GROUP_CHECKS[name]
+    cfg = dataclasses.replace(get_config(name), dtype="float32", **change)
+    model = build_model(cfg)
+    p_gpu = noised(torch, model.init(torch.Generator(cuda).manual_seed(
+        20 + k), device=cuda), seed=30 + k)
+    batch = make_batch(cfg, shape[0], shape[1], seed=40 + k)
+    prompt = batch.pop("tokens")
+    teacher = name == "gemma2-27b"
+    follow = torch.randint(0, cfg.vocab_size, (shape[0], steps),
+                           generator=torch.Generator().manual_seed(k))
+    moe_inputs, moe_ffn = [], blocks._moe_ffn
+    if cfg.num_experts:
+        def spy(p, x, cfg_):
+            if len(moe_inputs) < 2:             # the two prefills' inputs
+                moe_inputs.append((p, x))
+            return moe_ffn(p, x, cfg_)
+        blocks._moe_ffn = spy
+    try:
+        e_pre, e_dec, e_tf, pre, dec = one_group_card_vs_cpu(
+            torch, model, p_gpu, prompt, (flash_attention,),
+            f"{name} one group", extra=batch,
+            follow=follow if teacher else None, steps=steps,
+            teacher=teacher)
+    finally:
+        blocks._moe_ffn = moe_ffn
+    tf = "" if e_tf is None else f", teacher forcing {e_tf:.3e}"
+    print(f"{name} full width, {cfg.num_layers} layer(s)"
+          f"{', encoder 1' if cfg.is_encdec else ''}, float32, noised, "
+          f"prompt {tuple(prompt.shape)}: max |cuda - cpu| logits prefill "
+          f"{e_pre:.3e}, {steps} decode steps {e_dec:.3e}{tf} (atol = rtol "
+          f"= {ONE_GROUP_TOL}); flash launches prefill {pre[0]}, decode "
+          f"{dec[0]}")
+    if pre != (flash_pre,) or dec != (0,):
+        raise RuntimeError(f"{name} one group: flash launches prefill "
+                           f"{pre}, decode {dec}; expected {flash_pre} and 0")
+    if moe_inputs:
+        (pg, xg), (pc, xc) = moe_inputs
+        top_g, _ = router_top2(torch, blocks, cfg, pg, xg)
+        top_c, margin = router_top2(torch, blocks, cfg, pc, xc)
+        flips = (top_g != top_c).any(dim=-1).nonzero().flatten()
+        print(f"{name} router: {len(flips)} of {len(top_c)} tokens with "
+              f"other top-2 experts on the card than on the CPU"
+              + "".join(f"; token {int(t)}: card {top_g[t].tolist()}, cpu "
+                        f"{top_c[t].tolist()}, margin {float(margin[t]):.3e}"
+                        for t in flips)
+              + f"; smallest margin {float(margin.min()):.3e}")
+        if any(float(margin[t]) >= ROUTER_FLIP_MARGIN for t in flips):
+            raise RuntimeError(f"{name}: a top-2 flip at a router margin "
+                               f">= {ROUTER_FLIP_MARGIN}")
+    del p_gpu, moe_inputs
+    torch.cuda.empty_cache()
+
+
+def router_top2(torch, blocks, cfg, p, x):
+    """Each token's top-2 experts (a sorted pair) and its router margin
+    (the 2nd largest probability less the 3rd) for MoE block parameters
+    `p` and the block's input x (B, S, d), as `blocks._moe_ffn` routes
+    them."""
+    from repro_torch.models import common
+    h = common.rms_norm(x, p["moe_norm"], cfg.norm_eps)
+    probs = torch.softmax(h.to(torch.float32) @ p["router"], dim=-1)
+    w, idx = blocks._top_k(probs, 3)
+    top2 = torch.sort(idx[..., :2], dim=-1).values.reshape(-1, 2)
+    return top2.cpu(), (w[..., 1] - w[..., 2]).reshape(-1).cpu()
 
 
 def trace_generate(torch, engine, batch, label, card):
@@ -399,33 +623,41 @@ def trace_generate(torch, engine, batch, label, card):
           f"{per[2]:.0f} device events")
 
 
-def drive_generate(torch, cfg, kernels, per_prefill, card):
+def drive_generate(torch, cfg, kernels, per_prefill, card, *, batch=None,
+                   engine=None, label=None):
     """The serving path of `cfg` at full width and depth:
-    `ServingEngine(build_model(cfg), device="cuda").generate(make_batch(
-    cfg, 4, 512), steps=32)` with random weights drawn on the card, every
-    counter of `kernels` (name -> wrapper) set to 0 just before and read
-    just after. Raises unless the run launched `per_prefill` (one
-    prefill), the tokens extend the prompt within the vocab, a second
-    greedy run gives the same tokens, and one more prefill and decode step
-    launch `per_prefill` and nothing and give finite logits of the padded
+    `ServingEngine(build_model(cfg), device="cuda").generate(batch,
+    steps=32)` with random weights drawn on the card (or `engine`'s), the
+    batch `make_batch(cfg, 4, 512)` unless given, every counter of
+    `kernels` (name -> wrapper) set to 0 just before and read just after.
+    Raises unless the run launched `per_prefill` (one prefill), the tokens
+    extend the prompt within the vocab, a second greedy run gives the
+    same tokens, and one more prefill and decode step launch
+    `per_prefill` and nothing and give finite logits of the padded
     vocab's shape with the padding masked. Returns (engine, batch, the
-    launches of the first run)."""
+    launches of the first run, the prefill's cache of that last check)."""
     from repro_torch.data.pipeline import make_batch
     from repro_torch.models import build_model
     from repro_torch.models.decoder import padded_vocab
     from repro_torch.serving.engine import ServingEngine
     cuda = torch.device("cuda")
+    label = label or cfg.name
 
     def counts():
         return {name: k.launches for name, k in kernels.items()}
 
     held = torch.cuda.memory_allocated()   # by earlier phases
-    t0 = time.perf_counter()
-    engine = ServingEngine(build_model(cfg), device=cuda)
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
-    n_params = sum(t.numel() for t in leaves(engine.params))
-    batch = make_batch(cfg, GEN_BATCH, GEN_PROMPT, seed=0)
+    if engine is None:
+        t0 = time.perf_counter()
+        engine = ServingEngine(build_model(cfg), device=cuda)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        n_params = sum(t.numel() for t in leaves(engine.params))
+        print(f"{label}: {n_params / 1e9:.3f} B parameters ({cfg.dtype}) "
+              f"drawn on the card in {init_s:.2f} s")
+    if batch is None:
+        batch = make_batch(cfg, GEN_BATCH, GEN_PROMPT, seed=0)
+    bsz, plen = batch["tokens"].shape
     torch.cuda.reset_peak_memory_stats()
     for k in kernels.values():
         k.launches = 0
@@ -433,57 +665,100 @@ def drive_generate(torch, cfg, kernels, per_prefill, card):
     launched = counts()
     peak_gb = (torch.cuda.max_memory_allocated() - held) / 1e9
     toks = gen.tokens
-    print(f"{cfg.name}: {n_params / 1e9:.3f} B parameters ({cfg.dtype}) "
-          f"drawn on the card in {init_s:.2f} s; generate("
-          f"{tuple(batch['tokens'].shape)}, steps={GEN_STEPS}) -> tokens "
-          f"{tuple(toks.shape)}; launches {launched}")
-    want_shape = (GEN_BATCH, GEN_PROMPT + GEN_STEPS)
+    print(f"{label}: generate({tuple(batch['tokens'].shape)}, "
+          f"steps={GEN_STEPS}) -> tokens {tuple(toks.shape)}; launches "
+          f"{launched}")
+    want_shape = (bsz, plen + GEN_STEPS)
     if tuple(toks.shape) != want_shape or int(toks.min()) < 0 or \
             int(toks.max()) >= cfg.vocab_size or not torch.equal(
-                toks[:, :GEN_PROMPT].cpu(), batch["tokens"]):
-        raise RuntimeError(f"{cfg.name} generate: bad tokens "
+                toks[:, :plen].cpu(), batch["tokens"]):
+        raise RuntimeError(f"{label} generate: bad tokens "
                            f"{tuple(toks.shape)}")
     if launched != per_prefill:
-        raise RuntimeError(f"{cfg.name} generate: launches {launched}, "
+        raise RuntimeError(f"{label} generate: launches {launched}, "
                            f"expected {per_prefill}")
     gen2 = engine.generate(batch, steps=GEN_STEPS)
     if not torch.equal(gen2.tokens, toks):
-        raise RuntimeError(f"{cfg.name} generate: a second greedy run "
+        raise RuntimeError(f"{label} generate: a second greedy run "
                            f"returned other tokens")
+    dtype = getattr(torch, cfg.dtype)
+    dev_batch = {k: v.to(cuda, dtype) if v.is_floating_point()
+                 else v.to(cuda) for k, v in batch.items()}
     with torch.inference_mode():
         c0 = counts()
-        lg, cache = engine.model.prefill(
-            engine.params, {"tokens": batch["tokens"].to(cuda)},
-            max_len=GEN_PROMPT + 1)
+        lg, cache = engine.model.prefill(engine.params, dev_batch,
+                                         max_len=plen + 1)
         c1 = counts()
         lg2, _ = engine.model.decode_step(engine.params, lg.argmax(-1),
                                           cache)
         c2 = counts()
     pre = {name: c1[name] - c0[name] for name in kernels}
     dec = {name: c2[name] - c1[name] for name in kernels}
-    print(f"{cfg.name}: launches per prefill {pre}, per decode step {dec}")
+    print(f"{label}: launches per prefill {pre}, per decode step {dec}")
     if pre != per_prefill or any(dec.values()):
-        raise RuntimeError(f"{cfg.name}: launches per prefill {pre}, per "
+        raise RuntimeError(f"{label}: launches per prefill {pre}, per "
                            f"decode step {dec}")
     vpad = padded_vocab(cfg.vocab_size)
     for what, logits in (("prefill", lg), ("decode", lg2)):
         pad = logits[:, cfg.vocab_size:]
-        if tuple(logits.shape) != (GEN_BATCH, vpad) or \
+        if tuple(logits.shape) != (bsz, vpad) or \
                 not bool(torch.isfinite(logits).all()) or \
                 (pad.numel() and float(pad.max()) > -1e29):
-            raise RuntimeError(f"{cfg.name} {what} logits: shape "
+            raise RuntimeError(f"{label} {what} logits: shape "
                                f"{tuple(logits.shape)}, not finite or the "
                                f"vocab padding not masked")
-    del cache
-    for label, g in (("run 1", gen), ("run 2", gen2)):
-        print(f"[{card}] {cfg.name} generate {label}: prefill "
+    for run, g in (("run 1", gen), ("run 2", gen2)):
+        print(f"[{card}] {label} generate {run}: prefill "
               f"{g.prefill_seconds:.4f} s, decode "
               f"{g.decode_seconds / (GEN_STEPS - 1) * 1e3:.3f} ms per "
               f"step ({GEN_STEPS - 1} steps, {g.decode_seconds:.3f} s)")
-    print(f"[{card}] {cfg.name} generate: peak device memory "
+    print(f"[{card}] {label} generate: peak device memory "
           f"{peak_gb:.2f} GB (torch.cuda.max_memory_allocated less the "
-          f"{held / 1e9:.2f} GB that earlier phases hold)")
-    return engine, batch, launched
+          f"{held / 1e9:.2f} GB held before the run)")
+    return engine, batch, launched, cache
+
+
+def drive_llm_zoo(torch, kernels, card):
+    """Phase 6f: each of LLM_PATHS through `drive_generate` at full width
+    in bf16, and gemma2-27b once more on one prompt of LONG_PROMPT tokens
+    (the window bites in prefill, decode wraps the local layers' ring of
+    attn_window slots); gemma2-27b's 4 x 512 path is also traced (phase
+    8's `trace_generate`) while its engine is up. Each engine is freed
+    before the next is drawn. Returns {label: flash launches of its first
+    run}."""
+    import gc
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import make_batch
+    launches = {}
+    for name, change, flash in LLM_PATHS:
+        cfg = dataclasses.replace(get_config(name), **change)
+        label = name + "".join(f" {k}={v}" for k, v in change.items()
+                               if k != "num_groups")
+        want = {k: 0 for k in kernels}
+        want["flash_attention"] = flash
+        engine, batch, launched, cache = drive_generate(
+            torch, cfg, kernels, want, card, label=label)
+        launches[label] = launched["flash_attention"]
+        del cache
+        if name == "gemma2-27b":
+            trace_generate(torch, engine, batch, label, card)
+            long_batch = make_batch(cfg, 1, LONG_PROMPT, seed=3)
+            _, _, launched, cache = drive_generate(
+                torch, cfg, kernels, want, card, batch=long_batch,
+                engine=engine, label=f"{name} 1 x {LONG_PROMPT}")
+            slots = cache["groups"][0]["b0_attn_local"]["attn"]["k"].shape[2]
+            print(f"{name} 1 x {LONG_PROMPT}: local layers' ring buffer "
+                  f"{slots} slots (window {cfg.attn_window})")
+            if slots != cfg.attn_window:
+                raise RuntimeError(f"{name}: local cache of {slots} slots")
+            launches[f"{name} 1 x {LONG_PROMPT}"] = \
+                launched["flash_attention"]
+            del cache
+        del engine, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+    return launches
 
 
 def event_ms(torch, fn, iters, warmup=20):
@@ -1189,9 +1464,46 @@ def main():
                                f"launches")
         seq_err = max(seq_err, err)
 
+    # bf16 inputs (float32 math; h and c in bf16): the step kernel with
+    # every input in bf16 and with h alone (h' bf16, c' float32), the
+    # sequence kernel with all of its inputs in bf16
+    for k, shape in enumerate(TEST_SHAPES + ICU_SHAPES):
+        args = cell_inputs(torch, shape, cuda, seed=600 + k)
+        for mix, which in (("all", range(6)), ("h", (1,))):
+            a16 = [t.to(torch.bfloat16) if j in which else t
+                   for j, t in enumerate(args)]
+            hk, ck = lstm_cell(*a16)
+            hp, cp = lstm_cell_plain(*a16)
+            torch.cuda.synchronize()
+            err = max(float((hk.float() - hp.float()).abs().max()),
+                      float((ck.float() - cp.float()).abs().max()))
+            print(f"lstm_cell {shape} bf16 ({mix}): max |kernel - plain| = "
+                  f"{err:.3e} (atol {LSTM_BF16_TOL})")
+            if (hk.dtype, ck.dtype) != (a16[1].dtype, a16[2].dtype) or \
+                    not err <= LSTM_BF16_TOL:
+                raise RuntimeError(f"lstm_cell {shape} bf16 ({mix}): "
+                                   f"error {err} or dtypes "
+                                   f"{hk.dtype}, {ck.dtype}")
+    for k, (shape, t_len) in enumerate(
+            [(s_, ICU_T) for s_ in ICU_SHAPES]
+            + [(s_, t) for s_ in TEST_SHAPES for t in SEQ_TEST_T]):
+        args = [t.to(torch.bfloat16) for t in
+                sequence_inputs(torch, shape, t_len, cuda, seed=700 + k)]
+        hk, ck, hsk = lstm_sequence(*args, return_sequence=True)
+        hp, cp, hsp = lstm_sequence_plain(*args, return_sequence=True)
+        torch.cuda.synchronize()
+        err = max(float((a.float() - b.float()).abs().max())
+                  for a, b in ((hk, hp), (ck, cp), (hsk, hsp)))
+        print(f"lstm_sequence {shape} T={t_len} bf16: max |kernel - plain| "
+              f"(h_T, c_T, sequence) = {err:.3e} (atol {LSTM_BF16_TOL})")
+        if hk.dtype != torch.bfloat16 or not err <= LSTM_BF16_TOL:
+            raise RuntimeError(f"lstm_sequence {shape} T={t_len} bf16: "
+                               f"error {err} or dtype {hk.dtype}")
+
     flash_err = {}
     for k, case in enumerate(ATTN_CASES + [ZAMBA_ATTN] + RAGGED_ATTN
-                             + PADDED_ATTN):
+                             + PADDED_ATTN + LQ_GT_LK_ATTN
+                             + [c for c, _ in LLM_ATTN.values()]):
         for dtype in (torch.float32, torch.bfloat16):
             name = str(dtype).removeprefix("torch.")
             q, kk, v = flash_inputs(torch, case, dtype, cuda, seed=k)
@@ -1200,9 +1512,17 @@ def main():
             torch.cuda.synchronize()
             err = float((out.float() - want.float()).abs().max())
             tol = ATTN_TOL[name]
+            rows_ok, rel = True, ""
+            if dtype == torch.bfloat16:
+                gap = (out.float() - want.float()).norm(dim=-1)
+                size = want.float().norm(dim=-1)
+                rows_ok = bool((gap <= FLASH_BF16_ROW_REL * size).all())
+                row_rel = float((gap / size.clamp_min(1e-30)).max())
+                rel = (f", max over rows |kernel - plain| / |plain| = "
+                       f"{row_rel:.3e} (<= {FLASH_BF16_ROW_REL})")
             print(f"flash_attention {case} {name}: max |kernel - plain| = "
-                  f"{err:.3e} (atol = rtol = {tol})")
-            if out.dtype != dtype or not torch.allclose(
+                  f"{err:.3e} (atol = rtol = {tol}){rel}")
+            if out.dtype != dtype or not rows_ok or not torch.allclose(
                     out.float(), want.float(), atol=tol, rtol=tol):
                 raise RuntimeError(f"flash_attention {case} {name}: kernel "
                                    f"and plain version disagree")
@@ -1298,7 +1618,7 @@ def main():
     zmodel = build_model(zcfg)
     zp_gpu = zmodel.init(torch.Generator(cuda).manual_seed(1), device=cuda)
     prompt = make_batch(zcfg, 1, GEN_PROMPT, seed=1)["tokens"]
-    e_pre, e_dec, pre, dec = one_group_card_vs_cpu(
+    e_pre, e_dec, _, pre, dec = one_group_card_vs_cpu(
         torch, zmodel, zp_gpu, prompt, (flash_attention, ssm_scan),
         "zamba2 one group")
     print(f"zamba2 full width, 1 group, float32, prompt (1, {GEN_PROMPT}):"
@@ -1316,7 +1636,7 @@ def main():
     xmodel = build_model(xcfg)
     xp_gpu = xmodel.init(torch.Generator(cuda).manual_seed(1), device=cuda)
     prompt = make_batch(xcfg, 1, GEN_PROMPT, seed=1)["tokens"]
-    e_pre, e_dec, pre, dec = one_group_card_vs_cpu(
+    e_pre, e_dec, _, pre, dec = one_group_card_vs_cpu(
         torch, xmodel, xp_gpu, prompt, (mlstm_chunk,), "xlstm one group")
     print(f"xlstm-350m full width, 1 group, float32, prompt (1, "
           f"{GEN_PROMPT}): max |cuda - cpu| logits prefill {e_pre:.3e}, 4 "
@@ -1326,6 +1646,10 @@ def main():
         raise RuntimeError(f"xlstm one group: launches prefill {pre}, "
                            f"decode {dec}; expected 7 and 0")
     del xp_gpu
+
+    # the rest of the LLM zoo at full width, one group, float32, noised
+    for name in ONE_GROUP_CHECKS:
+        check_llm_one_group(torch, flash_attention, name)
 
     # 5. device search: CUDA vs CPU on integer instances
     check_device_search(torch, cuda)
@@ -1376,25 +1700,37 @@ def main():
                "flash_attention": flash_attention, "ssm_scan": ssm_scan,
                "mlstm_chunk": mlstm_chunk}
     zcfg = get_config("zamba2-2.7b")
-    zengine, zbatch, zl = drive_generate(
+    zengine, zbatch, zl, _ = drive_generate(
         torch, zcfg, kernels, {"lstm_cell": 0, "lstm_sequence": 0,
                                "flash_attention": zcfg.num_groups,
                                "ssm_scan": 5 * zcfg.num_groups,
                                "mlstm_chunk": 0}, card)
     flash_launches, ssm_launches = zl["flash_attention"], zl["ssm_scan"]
+    zamba_flash = flash_launches
+    # phase 8's trace while the engine is up; freed before phase 6f
+    trace_generate(torch, zengine, zbatch, "zamba2-2.7b", card)
+    del zengine, zbatch
     xcfg = get_config("xlstm-350m")
-    xengine, xbatch, xl = drive_generate(
+    xengine, xbatch, xl, _ = drive_generate(
         torch, xcfg, kernels, {"lstm_cell": 0, "lstm_sequence": 0,
                                "flash_attention": 0, "ssm_scan": 0,
                                "mlstm_chunk": XLSTM_BLOCKS * xcfg.num_groups},
         card)
     mlstm_launches = xl["mlstm_chunk"]
+    trace_generate(torch, xengine, xbatch, "xlstm-350m", card)
+    del xengine, xbatch
+    torch.cuda.empty_cache()
 
     # 6d. the fleet path (its counters read around each run alone)
     fleet_runs = drive_fleet(torch, kernels, card)
 
     # 6e. the metro engine (its counters read around the phase alone)
     metro_rates = drive_metro(torch, kernels, card)
+
+    # 6f. the rest of the LLM zoo at full width (each run's counters read
+    # around it alone)
+    zoo_launches = drive_llm_zoo(torch, kernels, card)
+    flash_launches += sum(zoo_launches.values())
 
     # main-path lstm_sequence launches per (B, I, H): calibrate runs two
     # inferences of CALIBRATE_RECORDS per workload, execution one of
@@ -1496,7 +1832,7 @@ def main():
           f"{ft['library_graph_ms']:.5f} ms; max |sdpa - kernel| "
           f"{lib_err:.3e}), kernel / sdpa {ft['ms'] / ft['library_ms']:.3f}"
           f", bound bytes {ft['bytes_ms']:.6f} ms / operations "
-          f"{ft['ops_ms']:.6f} ms, main-path launches {flash_launches}")
+          f"{ft['ops_ms']:.6f} ms, zamba2 main-path launches {zamba_flash}")
     q, kk, v = flash_inputs(torch, ZAMBA_ATTN, torch.float32, cuda, seed=200)
     f32_ms = event_ms(torch, lambda: flash_attention(q, kk, v, **kw), 20,
                       warmup=3)
@@ -1507,6 +1843,39 @@ def main():
           f"{f32_sdpa:.5f} ms, bound bytes "
           f"{flash_bound(ZAMBA_ATTN, 4, F32_FLOPS)[0]:.6f} ms / operations "
           f"{flash_bound(ZAMBA_ATTN, 4, F32_FLOPS)[1]:.6f} ms")
+
+    # flash_attention at phase 6f's prefill shapes, bf16: the kernel, its
+    # bound, and scaled_dot_product_attention where it computes the same
+    # function (no softcap; a window only where it does not bite: every
+    # query's whole causal past lies inside it)
+    for label, (case, per_prefill) in LLM_ATTN.items():
+        b, hq, hkv, lq, lk, d, causal, window, softcap = case
+        q, kk, v = flash_inputs(torch, case, torch.bfloat16, cuda, seed=210)
+        kw = flash_kwargs(case)
+        iters = 10 if lq * lk > 4096 * 4096 else 50
+        k_ms = event_ms(torch, lambda: flash_attention(q, kk, v, **kw), iters,
+                        warmup=3)
+        by_bytes, by_ops = flash_bound(case, 2, BF16_FLOPS)
+        same = softcap is None and (window is None or window >= lk)
+        sdpa_part = "scaled_dot_product_attention: none (softcap or a " \
+                    "window that bites)"
+        if same:
+            gqa = {"enable_gqa": True} if hq != hkv else {}
+
+            def sd():
+                return sdpa(q, kk, v, is_causal=causal, **gqa)
+            s_ms = event_ms(torch, sd, iters, warmup=3)
+            s_err = float((sd().float() - flash_attention(
+                q, kk, v, **kw).float()).abs().max())
+            sdpa_part = (f"scaled_dot_product_attention {s_ms:.5f} ms (max "
+                         f"|sdpa - kernel| {s_err:.3e}), kernel / sdpa "
+                         f"{k_ms / s_ms:.3f}")
+        print(f"[{card}] flash_attention {label} {case} bf16: kernel "
+              f"{k_ms:.5f} ms, {sdpa_part}, bound bytes {by_bytes:.6f} ms / "
+              f"operations {by_ops:.6f} ms (bound {max(by_bytes, by_ops):.6f}"
+              f" ms, kernel / bound {k_ms / max(by_bytes, by_ops):.2f}), "
+              f"launches per prefill {per_prefill}")
+        del q, kk, v
 
     # ssm_scan and mlstm_chunk: the bf16 tensor-core kernels at the main
     # paths' shapes (events; CUDA-graph replay, the device time alone), the
@@ -1636,8 +2005,6 @@ def main():
         traced_s = time.perf_counter() - t0
     print_profile(prof, f"[{card}] traced run_metro({METRO_BATCHED_PACKS[0]}"
                   f", tabu)", traced_s, 8)
-    trace_generate(torch, zengine, zbatch, "zamba2-2.7b", card)
-    trace_generate(torch, xengine, xbatch, "xlstm-350m", card)
 
     print(json.dumps({"kernels": [{
         "name": "lstm_cell", "route": "cuda",

@@ -52,16 +52,33 @@ def decoder_params_from_numpy(tree, cfg) -> Dict:
     under stack.shared) as the port's `DecoderModel` parameters: the same
     tree of leaf names, each leaf a CPU tensor of the same dtype."""
     out = _tree(tree)
-    groups = out["stack"]["groups"]
-    for i, kind in enumerate(cfg.group_pattern):
+    _check_groups(out["stack"]["groups"], cfg.group_pattern, cfg.num_groups)
+    return out
+
+
+def encdec_params_from_numpy(tree, cfg) -> Dict:
+    """The reference's `EncDecModel.init` pytree as numpy arrays (the
+    encoder's groups of pattern (ATTN,) stacked on encoder_layers, the
+    decoder's of pattern (ATTN, CROSS) on num_layers) as the port's
+    `EncDecModel` parameters: the same tree, each leaf a CPU tensor of the
+    same dtype."""
+    from repro_torch.models.encdec import DECODER_PATTERN, ENCODER_PATTERN
+    out = _tree(tree)
+    _check_groups(out["encoder"]["groups"], ENCODER_PATTERN,
+                  cfg.encoder_layers)
+    _check_groups(out["decoder"]["groups"], DECODER_PATTERN, cfg.num_layers)
+    return out
+
+
+def _check_groups(groups: Dict, pattern, num_groups: int) -> None:
+    for i, kind in enumerate(pattern):
         key = f"b{i}_{kind}"
         if key not in groups:
             raise ValueError(f"the tree has no group leaf {key!r}")
         lead = {int(t.shape[0]) for t in _leaves(groups[key])}
-        if lead != {cfg.num_groups}:
+        if lead != {num_groups}:
             raise ValueError(f"{key}: leading axes {sorted(lead)} != "
-                             f"num_groups {cfg.num_groups}")
-    return out
+                             f"num_groups {num_groups}")
 
 
 def _leaves(tree):

@@ -8,7 +8,12 @@
 //   the causal (k <= q) and sliding-window (k > q - window) masks;
 //   float32 running max and sum; a row with no live key gives 0, as the
 //   Pallas kernel's `l == 0 -> 1` does; key tiles with no live key are
-//   skipped; any Lq <= Lk and D <= 256 (ragged tiles are masked).
+//   skipped; any Lq, Lk and D <= 256 (ragged tiles are masked). With
+//   Lq > Lk the query offset Lk - Lq is negative, as in the Pallas kernel:
+//   the start/stop logic below (k_begin, k_end, q_first, q_last, the
+//   tile masks) reads signed positions, so a causal tile before key 0
+//   stages no key tile and writes zeros, and a non-causal one without a
+//   window sees every key.
 //
 // What bounds it on an H100: at zamba2's prefill shape (B 4, H 32, L 512,
 // D 80, bf16, causal) one call moves ~42 MB (a 12.5 us byte bound) and does
@@ -629,7 +634,7 @@ int dispatch_bf16(const void* q, const void* k, const void* v, void* o,
 
 // q, o (B, Hq, Lq, D); k, v (B, Hkv, Lk, D); all of one dtype (0 float32,
 // 1 bfloat16), contiguous, on one device; 1 <= D <= 256, Hq % Hkv == 0,
-// Lq <= Lk. `stream` is a cudaStream_t. Returns a cudaError_t (0 on
+// any Lq, Lk >= 1. `stream` is a cudaStream_t. Returns a cudaError_t (0 on
 // success).
 extern "C" int repro_flash_attention(const void* q, const void* k,
                                      const void* v, void* o, int dtype, int B,

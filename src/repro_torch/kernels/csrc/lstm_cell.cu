@@ -1,5 +1,5 @@
-// The LSTM cell in float32, for Hopper (sm_90a): one step, and a whole
-// layer's sequence in one launch.
+// The LSTM cell with float32 math, for Hopper (sm_90a): one step, and a
+// whole layer's sequence in one launch, on float32 or bfloat16 inputs.
 //
 // Replaces the Pallas TPU kernel `_lstm_kernel`, launched by `lstm_cell`
 // in src/repro/kernels/lstm_cell.py, and its scan over time in the
@@ -7,19 +7,25 @@
 // gate order i, f, g, o, weights laid out (I, 4, H) and (H, 4, H), bias
 // (4, H), float32 sums,
 //   c' = sigmoid(f) c + sigmoid(i) tanh(g),   h' = sigmoid(o) tanh(c').
+// As the Pallas cell casts them, every input is read in its own dtype
+// (float32 or bfloat16) and taken to float32, and h' and c' are written in
+// h's and c's dtypes. The sequence kernel takes one dtype for all its
+// inputs and returns h and c in it, so with bfloat16 it rounds h and c to
+// bfloat16 after every step, as a scan of the cell would.
 //
 // What bounds it on an H100: at the ICU shapes (B = 8 or 16, I <= 76,
 // H <= 32) one step moves 4-70 KB and does under 0.4 MFLOP, which is
 // nanoseconds at 3.35 TB/s or 67 TFLOP/s; the step is bound by latency.
 //
-// `lstm_cell_kernel` (one step, `repro_lstm_cell_f32`): both products, the
+// `lstm_cell_kernel` (one step, `repro_lstm_cell`): both products, the
 // bias and the gate math fused in one launch; one block per (batch row,
 // tile of up to 256 hidden units), the row's x and h staged in shared
 // memory, one thread per hidden unit summing its four gates over I and H
-// with coalesced weight reads. Called once per timestep, its cost is the
+// with coalesced weight reads; one instance per mask of input dtypes, so no
+// load branches on its dtype. Called once per timestep, its cost is the
 // host's launch (29-43 us through the wrapper against 5-14 us on the card).
 //
-// `lstm_sequence_kernel` (T steps, `repro_lstm_sequence_f32`): a layer in
+// `lstm_sequence_kernel` (T steps, `repro_lstm_sequence`): a layer in
 // ONE launch, so the host pays one launch per layer, not one per step. The
 // serial chain of T dependent steps is what is left; the design keeps each
 // step short and everything it reads on chip:
@@ -50,31 +56,59 @@
 //
 // Plain C entry points, loaded with ctypes. Each returns cudaGetLastError()
 // after the launch, so a refused launch is reported to the caller.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <array>
+#include <type_traits>
+#include <utility>
+
 namespace {
+
+using bf16 = __nv_bfloat16;
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
 
 __device__ __forceinline__ float sigmoid_f32(float v) {
   return 1.0f / (1.0f + expf(-v));
 }
 
-__global__ void lstm_cell_kernel(const float* __restrict__ x,
-                                 const float* __restrict__ h,
-                                 const float* __restrict__ c,
-                                 const float* __restrict__ wx,
-                                 const float* __restrict__ wh,
-                                 const float* __restrict__ b,
-                                 float* __restrict__ h_out,
-                                 float* __restrict__ c_out, int I, int H) {
+// bit k of `dtypes` set: tensor k of (x, h, c, wx, wh, b) is bfloat16;
+// h_out and c_out take h's and c's dtypes
+enum { BF_X = 1, BF_H = 2, BF_C = 4, BF_WX = 8, BF_WH = 16, BF_B = 32 };
+constexpr int CELL_DTYPE_MASKS = 64;
+
+// the element type of the tensor whose bit is `BIT` in `M`
+template <int M, int BIT>
+using CellT = std::conditional_t<(M & BIT) != 0, bf16, float>;
+
+__device__ __forceinline__ void store_as(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store_as(bf16* p, float v) {
+  *p = __float2bfloat16(v);
+}
+
+// One instance per dtype mask M, so that every load and store is typed at
+// compile time; M = 0 is the all-float32 kernel.
+template <int M>
+__global__ void lstm_cell_kernel(const CellT<M, BF_X>* __restrict__ x,
+                                 const CellT<M, BF_H>* __restrict__ h,
+                                 const CellT<M, BF_C>* __restrict__ c,
+                                 const CellT<M, BF_WX>* __restrict__ wx,
+                                 const CellT<M, BF_WH>* __restrict__ wh,
+                                 const CellT<M, BF_B>* __restrict__ b,
+                                 CellT<M, BF_H>* __restrict__ h_out,
+                                 CellT<M, BF_C>* __restrict__ c_out, int I,
+                                 int H) {
   extern __shared__ float smem[];  // x row (I floats), then h row (H)
   float* sx = smem;
   float* sh = smem + I;
   const long long row = blockIdx.x;
-  const float* xr = x + row * I;
-  const float* hr = h + row * H;
-  for (int k = threadIdx.x; k < I; k += blockDim.x) sx[k] = xr[k];
-  for (int k = threadIdx.x; k < H; k += blockDim.x) sh[k] = hr[k];
+  const auto* xr = x + row * I;
+  const auto* hr = h + row * H;
+  for (int k = threadIdx.x; k < I; k += blockDim.x) sx[k] = to_f32(xr[k]);
+  for (int k = threadIdx.x; k < H; k += blockDim.x) sh[k] = to_f32(hr[k]);
   __syncthreads();
 
   const int j = blockIdx.y * blockDim.x + threadIdx.x;
@@ -86,58 +120,85 @@ __global__ void lstm_cell_kernel(const float* __restrict__ x,
   float xi = 0.f, xf = 0.f, xg = 0.f, xo = 0.f;
   for (int k = 0; k < I; ++k) {
     const float v = sx[k];
-    const float* w = wx + k * stride + j;
-    xi = fmaf(v, w[0], xi);
-    xf = fmaf(v, w[H], xf);
-    xg = fmaf(v, w[2 * H], xg);
-    xo = fmaf(v, w[3 * H], xo);
+    const auto* w = wx + k * stride + j;
+    xi = fmaf(v, to_f32(w[0]), xi);
+    xf = fmaf(v, to_f32(w[H]), xf);
+    xg = fmaf(v, to_f32(w[2 * H]), xg);
+    xo = fmaf(v, to_f32(w[3 * H]), xo);
   }
   float hi = 0.f, hf = 0.f, hg = 0.f, ho = 0.f;
   for (int k = 0; k < H; ++k) {
     const float v = sh[k];
-    const float* w = wh + k * stride + j;
-    hi = fmaf(v, w[0], hi);
-    hf = fmaf(v, w[H], hf);
-    hg = fmaf(v, w[2 * H], hg);
-    ho = fmaf(v, w[3 * H], ho);
+    const auto* w = wh + k * stride + j;
+    hi = fmaf(v, to_f32(w[0]), hi);
+    hf = fmaf(v, to_f32(w[H]), hf);
+    hg = fmaf(v, to_f32(w[2 * H]), hg);
+    ho = fmaf(v, to_f32(w[3 * H]), ho);
   }
-  const float ig = sigmoid_f32(xi + hi + b[j]);
-  const float fg = sigmoid_f32(xf + hf + b[H + j]);
-  const float gg = tanhf(xg + hg + b[2 * H + j]);
-  const float og = sigmoid_f32(xo + ho + b[3 * H + j]);
+  const float ig = sigmoid_f32(xi + hi + to_f32(b[j]));
+  const float fg = sigmoid_f32(xf + hf + to_f32(b[H + j]));
+  const float gg = tanhf(xg + hg + to_f32(b[2 * H + j]));
+  const float og = sigmoid_f32(xo + ho + to_f32(b[3 * H + j]));
   const long long o = row * H + j;
-  const float cn = fg * c[o] + ig * gg;
-  c_out[o] = cn;
-  h_out[o] = og * tanhf(cn);
+  const float cn = fg * to_f32(c[o]) + ig * gg;
+  store_as(c_out + o, cn);
+  store_as(h_out + o, og * tanhf(cn));
 }
 
-}  // namespace
-
-// x (B, I); h, c, h_out, c_out (B, H); wx (I, 4, H); wh (H, 4, H);
-// b (4, H); all float32, contiguous, on one device. `stream` is a
-// cudaStream_t. Returns a cudaError_t (0 on success).
-extern "C" int repro_lstm_cell_f32(const void* x, const void* h,
-                                   const void* c, const void* wx,
-                                   const void* wh, const void* b, void* h_out,
-                                   void* c_out, int B, int I, int H,
-                                   void* stream) {
+template <int M>
+int launch_cell(const void* x, const void* h, const void* c, const void* wx,
+                const void* wh, const void* b, void* h_out, void* c_out,
+                int B, int I, int H, cudaStream_t stream) {
   int threads = ((H + 31) / 32) * 32;
   if (threads > 256) threads = 256;
   const dim3 grid(B, (H + threads - 1) / threads);
   const size_t smem = static_cast<size_t>(I + H) * sizeof(float);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        lstm_cell_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        lstm_cell_kernel<M>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  lstm_cell_kernel<<<grid, threads, smem,
-                     static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<const float*>(h),
-      static_cast<const float*>(c), static_cast<const float*>(wx),
-      static_cast<const float*>(wh), static_cast<const float*>(b),
-      static_cast<float*>(h_out), static_cast<float*>(c_out), I, H);
+  lstm_cell_kernel<M><<<grid, threads, smem, stream>>>(
+      static_cast<const CellT<M, BF_X>*>(x),
+      static_cast<const CellT<M, BF_H>*>(h),
+      static_cast<const CellT<M, BF_C>*>(c),
+      static_cast<const CellT<M, BF_WX>*>(wx),
+      static_cast<const CellT<M, BF_WH>*>(wh),
+      static_cast<const CellT<M, BF_B>*>(b),
+      static_cast<CellT<M, BF_H>*>(h_out), static_cast<CellT<M, BF_C>*>(c_out),
+      I, H);
   return static_cast<int>(cudaGetLastError());
+}
+
+using CellLaunch = int (*)(const void*, const void*, const void*, const void*,
+                           const void*, const void*, void*, void*, int, int,
+                           int, cudaStream_t);
+
+// launch_cell<M> for every M, indexed by the dtype mask
+template <int... M>
+constexpr std::array<CellLaunch, sizeof...(M)> cell_launches(
+    std::integer_sequence<int, M...>) {
+  return {&launch_cell<M>...};
+}
+
+}  // namespace
+
+// x (B, I); h, c, h_out, c_out (B, H); wx (I, 4, H); wh (H, 4, H);
+// b (4, H); each float32 or bfloat16 as `dtypes` says (bit k: input k of
+// x, h, c, wx, wh, b is bfloat16; h_out and c_out as h and c),
+// contiguous, on one device. `stream` is a cudaStream_t. Returns a
+// cudaError_t (0 on success).
+extern "C" int repro_lstm_cell(const void* x, const void* h, const void* c,
+                               const void* wx, const void* wh, const void* b,
+                               void* h_out, void* c_out, int B, int I, int H,
+                               int dtypes, void* stream) {
+  static constexpr auto launches =
+      cell_launches(std::make_integer_sequence<int, CELL_DTYPE_MASKS>{});
+  if (dtypes < 0 || dtypes >= CELL_DTYPE_MASKS)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launches[dtypes](x, h, c, wx, wh, b, h_out, c_out, B, I, H,
+                          static_cast<cudaStream_t>(stream));
 }
 
 namespace {
@@ -200,20 +261,32 @@ struct SeqLayout {
   }
 };
 
-// xs (T, B, I); hs (T, B, H) or null. One block per batch row; blockDim.x
+// h or c rounded to the sequence's dtype: the plain scan of the cell
+// carries them in it from step to step
+__device__ __forceinline__ float round_to(float v, const float*) { return v; }
+__device__ __forceinline__ float round_to(float v, const bf16*) {
+  return __bfloat162float(__float2bfloat16(v));
+}
+
+// xs (T, B, I); hs (T, B, H) or null; all of type T_ (float or bf16),
+// staged in shared memory as float32. Inputs are read through
+// static_cast<float> in place, with no helper call: so written, the float
+// instance compiles to the same SASS as the float32-only kernel it
+// replaced (tools/kernel_ab.py checks). One block per batch row; blockDim.x
 // = R x G32, G32 = 4H rounded up to 32: R groups of one thread per gate
 // column share the input half's passes. TS (a multiple of SEQ_TC) steps a
 // segment. HR: the recurrence's width on one warp (8, 16 or 32, at least
 // H; wh and h zero-padded to it), or 0 for the block-wide recurrence.
-template <int HR>
-__global__ void lstm_sequence_kernel(const float* __restrict__ xs,
-                                     const float* __restrict__ wx,
-                                     const float* __restrict__ wh,
-                                     const float* __restrict__ b,
-                                     float* __restrict__ h_out,
-                                     float* __restrict__ c_out,
-                                     float* __restrict__ hs, int T, int B,
+template <int HR, typename T_>
+__global__ void lstm_sequence_kernel(const T_* __restrict__ xs,
+                                     const T_* __restrict__ wx,
+                                     const T_* __restrict__ wh,
+                                     const T_* __restrict__ b,
+                                     T_* __restrict__ h_out,
+                                     T_* __restrict__ c_out,
+                                     T_* __restrict__ hs, int T, int B,
                                      int I, int H, int TS, int stage_wx) {
+  constexpr bool F32 = std::is_same<T_, float>::value;
   extern __shared__ __align__(16) float seq_smem[];
   const SeqLayout lay(TS, I, H, stage_wx);
   float* hsh = seq_smem + lay.h;
@@ -229,9 +302,16 @@ __global__ void lstm_sequence_kernel(const float* __restrict__ xs,
   const int groups = blockDim.x / g32;
   const bool col = n < G;
 
-  if (stage_wx)
-    for (int e = tid; e < I * H; e += blockDim.x)  // I x 4H floats, by 4
-      cp_async16(seq_smem + lay.wx + 4 * e, wx + 4 * e);
+  if (stage_wx) {
+    if constexpr (F32) {
+      for (int e = tid; e < I * H; e += blockDim.x)  // I x 4H floats, by 4
+        cp_async16(seq_smem + lay.wx + 4 * e,
+                   reinterpret_cast<const float*>(wx) + 4 * e);
+    } else {
+      for (int e = tid; e < 4 * I * H; e += blockDim.x)
+        seq_smem[lay.wx + e] = static_cast<float>(wx[e]);
+    }
+  }
   for (int e = tid; e < static_cast<int>(lay.gates); e += blockDim.x)
     hsh[e] = 0.f;
 
@@ -246,12 +326,13 @@ __global__ void lstm_sequence_kernel(const float* __restrict__ xs,
 #pragma unroll
       for (int k = 0; k < WR; ++k)
         w[g][k] = (tid < H && k < H)
-                      ? wh[static_cast<long long>(k) * G + g * H + tid]
+                      ? static_cast<float>(
+                            wh[static_cast<long long>(k) * G + g * H + tid])
                       : 0.f;
-      bias[g] = tid < H ? b[g * H + tid] : 0.f;
+      bias[g] = tid < H ? static_cast<float>(b[g * H + tid]) : 0.f;
     }
   } else {
-    bias[0] = col ? b[n] : 0.f;
+    bias[0] = col ? static_cast<float>(b[n]) : 0.f;
   }
 
   for (int s0 = 0; s0 < T; s0 += TS) {
@@ -259,8 +340,12 @@ __global__ void lstm_sequence_kernel(const float* __restrict__ xs,
     // 1. the segment's inputs, by cp.async, k-major within each pass
     for (int e = tid; e < sn * I; e += blockDim.x) {
       const int t = e / I, k = e - t * I;
-      cp_async4(xsh + ((t / SEQ_TC) * I + k) * SEQ_TC + t % SEQ_TC,
-                xs + (static_cast<long long>(s0 + t) * B + row) * I + k);
+      float* dst = xsh + ((t / SEQ_TC) * I + k) * SEQ_TC + t % SEQ_TC;
+      const T_* src = xs + (static_cast<long long>(s0 + t) * B + row) * I + k;
+      if constexpr (F32)
+        cp_async4(dst, reinterpret_cast<const float*>(src));
+      else
+        *dst = static_cast<float>(*src);
     }
     cp_async_wait_all();
     __syncthreads();
@@ -268,7 +353,7 @@ __global__ void lstm_sequence_kernel(const float* __restrict__ xs,
     // 2. the input half, x_t . wx, SEQ_TC steps a pass, into xwsh
     if (col) {
       const int passes = (sn + SEQ_TC - 1) / SEQ_TC;
-      const auto run_passes = [&](const float* wcol) {
+      const auto run_passes = [&](const auto* wcol) {
         for (int pass = grp; pass < passes; pass += groups) {
           const float* xp = xsh + static_cast<size_t>(pass) * I * SEQ_TC;
           float acc[SEQ_TC];
@@ -276,7 +361,8 @@ __global__ void lstm_sequence_kernel(const float* __restrict__ xs,
           for (int t = 0; t < SEQ_TC; ++t) acc[t] = 0.f;
 #pragma unroll 4
           for (int k = 0; k < I; ++k) {
-            const float wk = wcol[static_cast<long long>(k) * G];
+            const float wk =
+                static_cast<float>(wcol[static_cast<long long>(k) * G]);
             const float4* x4 = reinterpret_cast<const float4*>(xp + k * SEQ_TC);
 #pragma unroll
             for (int q = 0; q < SEQ_TC / 4; ++q) {
@@ -333,10 +419,13 @@ __global__ void lstm_sequence_kernel(const float* __restrict__ xs,
             const float gg = tanh_sfu(pre[2] + a[2] + bias[2]);
             const float og = sigmoid_sfu(pre[3] + a[3] + bias[3]);
             c = fg * c + ig * gg;
-            h = og * tanh_sfu(c);
+            h = round_to(og * tanh_sfu(c), xs);
+            c = round_to(c, xs);
             hsh[tid] = h;
             if (hs != nullptr)
-              hs[(static_cast<long long>(s0 + t) * B + row) * H + tid] = h;
+              store_as(hs + (static_cast<long long>(s0 + t) * B + row) * H +
+                           tid,
+                       h);
           }
           __syncwarp();
         }
@@ -348,16 +437,29 @@ __global__ void lstm_sequence_kernel(const float* __restrict__ xs,
       for (int t = 0; t < sn; ++t) {
         if (col) {
           float a[4] = {0.f, 0.f, 0.f, 0.f};
-          const float* wc = wh + n;
+          const T_* wc = wh + n;
           int k = 0;
           for (; k + 4 <= H; k += 4) {
-            a[0] = fmaf(hsh[k], wc[static_cast<long long>(k) * G], a[0]);
-            a[1] = fmaf(hsh[k + 1], wc[static_cast<long long>(k + 1) * G], a[1]);
-            a[2] = fmaf(hsh[k + 2], wc[static_cast<long long>(k + 2) * G], a[2]);
-            a[3] = fmaf(hsh[k + 3], wc[static_cast<long long>(k + 3) * G], a[3]);
+            a[0] = fmaf(hsh[k],
+                        static_cast<float>(wc[static_cast<long long>(k) * G]),
+                        a[0]);
+            a[1] = fmaf(
+                hsh[k + 1],
+                static_cast<float>(wc[static_cast<long long>(k + 1) * G]),
+                a[1]);
+            a[2] = fmaf(
+                hsh[k + 2],
+                static_cast<float>(wc[static_cast<long long>(k + 2) * G]),
+                a[2]);
+            a[3] = fmaf(
+                hsh[k + 3],
+                static_cast<float>(wc[static_cast<long long>(k + 3) * G]),
+                a[3]);
           }
           for (; k < H; ++k)
-            a[0] = fmaf(hsh[k], wc[static_cast<long long>(k) * G], a[0]);
+            a[0] = fmaf(hsh[k],
+                        static_cast<float>(wc[static_cast<long long>(k) * G]),
+                        a[0]);
           gates[n] = xwsh[t * G + n] + ((a[0] + a[1]) + (a[2] + a[3])) +
                      bias[0];
         }
@@ -368,10 +470,12 @@ __global__ void lstm_sequence_kernel(const float* __restrict__ xs,
           const float gg = tanh_sfu(gates[2 * H + tid]);
           const float og = sigmoid_sfu(gates[3 * H + tid]);
           c = fg * c + ig * gg;
-          h = og * tanh_sfu(c);
+          h = round_to(og * tanh_sfu(c), xs);
+          c = round_to(c, xs);
           hsh[tid] = h;
           if (hs != nullptr)
-            hs[(static_cast<long long>(s0 + t) * B + row) * H + tid] = h;
+            store_as(hs + (static_cast<long long>(s0 + t) * B + row) * H + tid,
+                     h);
         }
         __syncthreads();  // h is whole; gate reads are done
       }
@@ -379,22 +483,45 @@ __global__ void lstm_sequence_kernel(const float* __restrict__ xs,
     __syncthreads();  // the segment's buffers are free
   }
   if (tid < H) {
-    h_out[static_cast<long long>(row) * H + tid] = h;
-    c_out[static_cast<long long>(row) * H + tid] = c;
+    store_as(h_out + static_cast<long long>(row) * H + tid, h);
+    store_as(c_out + static_cast<long long>(row) * H + tid, c);
   }
+}
+
+template <typename T_>
+int launch_sequence(const void* xs, const void* wx, const void* wh,
+                    const void* b, void* h_out, void* c_out, void* hs, int T,
+                    int B, int I, int H, int ts, bool stage_wx, size_t smem,
+                    int threads, cudaStream_t stream) {
+  const auto kernel = H <= 8    ? lstm_sequence_kernel<8, T_>
+                      : H <= 16 ? lstm_sequence_kernel<16, T_>
+                      : H <= 32 ? lstm_sequence_kernel<32, T_>
+                                : lstm_sequence_kernel<0, T_>;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  kernel<<<B, threads, smem, stream>>>(
+      static_cast<const T_*>(xs), static_cast<const T_*>(wx),
+      static_cast<const T_*>(wh), static_cast<const T_*>(b),
+      static_cast<T_*>(h_out), static_cast<T_*>(c_out), static_cast<T_*>(hs),
+      T, B, I, H, ts, stage_wx);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // xs (T, B, I); wx (I, 4, H); wh (H, 4, H); b (4, H); h_out, c_out (B, H);
-// hs (T, B, H) or null; all float32, contiguous, on one device; T, B >= 1,
-// 1 <= H <= 256, and a segment of SEQ_TC steps within SEQ_SMEM_CAP.
-// `stream` is a cudaStream_t. Returns a cudaError_t (0 on success).
-extern "C" int repro_lstm_sequence_f32(const void* xs, const void* wx,
-                                       const void* wh, const void* b,
-                                       void* h_out, void* c_out, void* hs,
-                                       int T, int B, int I, int H,
-                                       void* stream) {
+// hs (T, B, H) or null; all float32 (bf16 = 0) or all bfloat16 (bf16 = 1),
+// contiguous, on one device; T, B >= 1, 1 <= H <= 256, and a segment of
+// SEQ_TC steps within SEQ_SMEM_CAP. `stream` is a cudaStream_t. Returns a
+// cudaError_t (0 on success).
+extern "C" int repro_lstm_sequence(const void* xs, const void* wx,
+                                   const void* wh, const void* b, void* h_out,
+                                   void* c_out, void* hs, int T, int B, int I,
+                                   int H, int bf16_inputs, void* stream) {
   if (H < 1 || 4 * H > 1024 || T < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const auto bytes = [&](int ts, bool stage) {
@@ -412,20 +539,10 @@ extern "C" int repro_lstm_sequence_f32(const void* xs, const void* wx,
   const size_t smem = bytes(ts, stage_wx);
   const int g32 = (4 * H + 31) / 32 * 32;
   const int threads = g32 * (g32 < 256 ? 256 / g32 : 1);
-  const auto kernel = H <= 8    ? lstm_sequence_kernel<8>
-                      : H <= 16 ? lstm_sequence_kernel<16>
-                      : H <= 32 ? lstm_sequence_kernel<32>
-                                : lstm_sequence_kernel<0>;
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  kernel<<<B, threads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(xs), static_cast<const float*>(wx),
-      static_cast<const float*>(wh), static_cast<const float*>(b),
-      static_cast<float*>(h_out), static_cast<float*>(c_out),
-      static_cast<float*>(hs), T, B, I, H, ts, stage_wx);
-  return static_cast<int>(cudaGetLastError());
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bf16_inputs)
+    return launch_sequence<bf16>(xs, wx, wh, b, h_out, c_out, hs, T, B, I, H,
+                                 ts, stage_wx, smem, threads, s);
+  return launch_sequence<float>(xs, wx, wh, b, h_out, c_out, hs, T, B, I, H,
+                                ts, stage_wx, smem, threads, s);
 }

@@ -11,6 +11,11 @@ design answers that. Unlike the Pallas kernel it
 takes ragged lengths: nothing has to divide a tile, so `block_q` and
 `block_k` are accepted for the signature and not used.
 
+Any Lq and Lk: with Lq > Lk the query offset Lk - Lq is negative, as in
+the Pallas kernel, so a causal row before the first key has no live key
+and gives 0, and without a causal mask or a window every query sees every
+key (cross attention to fewer states than there are queries).
+
 `flash_attention` takes the kernel for CUDA tensors and the plain PyTorch
 version for CPU tensors; on the card it launches the kernel or raises. It
 counts its launches in `flash_attention.launches`.
@@ -52,16 +57,13 @@ def _check(q, k, v) -> None:
         if t.dim() != 4:
             raise ValueError(f"{name} must have 4 dims (B, H, L, D), got "
                              f"{t.dim()}")
-    b, hq, lq, d = q.shape
-    _, hkv, lk, _ = k.shape
+    b, hq, _, d = q.shape
+    _, hkv, _, _ = k.shape
     if v.shape != k.shape or k.shape[0] != b or k.shape[3] != d:
         raise ValueError(f"k {tuple(k.shape)} and v {tuple(v.shape)} must "
                          f"both be (B={b}, Hkv, Lk, D={d})")
     if hq % hkv:
         raise ValueError(f"GQA needs Hq % Hkv == 0, got ({hq}, {hkv})")
-    if lq > lk:
-        raise ValueError(f"queries are end-aligned to the keys: Lq={lq} "
-                         f"must not exceed Lk={lk}")
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError("flash_attention takes q, k, v of one dtype, "
                         "float32 or bfloat16, got "
@@ -90,7 +92,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     block_q: int = 128,
                     block_k: int = 128) -> torch.Tensor:
     """q: (B, Hq, Lq, D); k, v: (B, Hkv, Lk, D). Returns (B, Hq, Lq, D) in
-    q's dtype. Queries are aligned to the end of the key sequence.
+    q's dtype. Queries are aligned to the end of the key sequence (query
+    i sits at key position Lk - Lq + i, which is negative for Lq > Lk).
     Launches on the current CUDA stream and does not synchronise."""
     _check(q, k, v)
     if q.device.type == "cpu":

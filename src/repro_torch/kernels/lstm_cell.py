@@ -8,6 +8,12 @@ steps from a zero state in one launch. The CUDA source,
 designs answer that. Weights keep the reference's (I, 4, H) / (H, 4, H) /
 (4, H) layout, so a hidden unit's four gates sit H apart.
 
+Inputs are float32 or bfloat16 and the math is float32, as the Pallas
+cell casts them: `lstm_cell` reads each input in its own dtype and writes
+h' and c' in h's and c's; `lstm_sequence` takes one dtype for all its
+inputs and returns h and c in it (rounded to it after every step, as a
+scan of the cell carries them).
+
 Each wrapper takes its kernel for CUDA tensors and its plain PyTorch
 version for CPU tensors; on the card it launches the kernel or raises. It
 counts its launches in `lstm_cell.launches` / `lstm_sequence.launches`.
@@ -61,10 +67,16 @@ def _check_weights(i_dim, h_dim, wx, wh, b) -> None:
         raise ValueError(f"b shape {tuple(b.shape)} != {(4, h_dim)}")
 
 
-def _check_tensors(op, tensors) -> None:
-    if any(t.dtype != torch.float32 for t in tensors):
-        raise TypeError(f"{op} takes float32 only, got "
-                        f"{sorted({str(t.dtype) for t in tensors})}")
+_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _check_tensors(op, tensors, *, one_dtype: bool) -> None:
+    dtypes = {t.dtype for t in tensors}
+    if not dtypes <= set(_DTYPES) or (one_dtype and len(dtypes) > 1):
+        kind = "one dtype, float32 or bfloat16" if one_dtype \
+            else "float32 or bfloat16 inputs"
+        raise TypeError(f"{op} takes {kind}, got "
+                        f"{sorted(str(d) for d in dtypes)}")
     if any(t.device != tensors[0].device for t in tensors):
         raise ValueError(f"{op} inputs lie on different devices: "
                          f"{sorted({str(t.device) for t in tensors})}")
@@ -83,13 +95,13 @@ def _check(x, h, c, wx, wh, b) -> None:
         raise ValueError(f"h {tuple(h.shape)} and c {tuple(c.shape)} must "
                          f"both be {(bsz, h_dim)}")
     _check_weights(i_dim, h_dim, wx, wh, b)
-    _check_tensors("lstm_cell", (x, h, c, wx, wh, b))
+    _check_tensors("lstm_cell", (x, h, c, wx, wh, b), one_dtype=False)
 
 
 @functools.lru_cache(maxsize=None)
 def _entry():
-    fn = build.load("lstm_cell").repro_lstm_cell_f32
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 \
+    fn = build.load("lstm_cell").repro_lstm_cell
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 \
         + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -101,13 +113,13 @@ def _check_sequence(xs, wx, wh, b) -> None:
         if t.dim() != nd:
             raise ValueError(f"{name} must have {nd} dims, got {t.dim()}")
     _check_weights(xs.shape[2], wh.shape[0], wx, wh, b)
-    _check_tensors("lstm_sequence", (xs, wx, wh, b))
+    _check_tensors("lstm_sequence", (xs, wx, wh, b), one_dtype=True)
 
 
 @functools.lru_cache(maxsize=None)
 def _sequence_entry():
-    fn = build.load("lstm_cell").repro_lstm_sequence_f32
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 \
+    fn = build.load("lstm_cell").repro_lstm_sequence
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 \
         + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -118,7 +130,8 @@ def lstm_cell(x: torch.Tensor, h: torch.Tensor, c: torch.Tensor,
               b: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """x: (B, I); h, c: (B, H); wx: (I, 4, H); wh: (H, 4, H); b: (4, H).
 
-    Gate order i, f, g, o. Returns (h', c'). Launches on the current CUDA
+    Gate order i, f, g, o; each input float32 or bfloat16, float32 math.
+    Returns (h', c') in h's and c's dtypes. Launches on the current CUDA
     stream and does not synchronise."""
     _check(x, h, c, wx, wh, b)
     if x.device.type == "cpu":
@@ -139,9 +152,12 @@ def lstm_cell(x: torch.Tensor, h: torch.Tensor, c: torch.Tensor,
     if bsz == 0 or h_dim == 0:
         return h_out, c_out
     stream = torch.cuda.current_stream(x.device).cuda_stream
+    # bit k: input k of (x, h, c, wx, wh, b) is bfloat16
+    dtypes = sum(1 << k for k, t in enumerate((x, h, c, wx, wh, b))
+                 if t.dtype == torch.bfloat16)
     err = _entry()(x.data_ptr(), h.data_ptr(), c.data_ptr(), wx.data_ptr(),
                    wh.data_ptr(), b.data_ptr(), h_out.data_ptr(),
-                   c_out.data_ptr(), bsz, i_dim, h_dim, stream)
+                   c_out.data_ptr(), bsz, i_dim, h_dim, dtypes, stream)
     if err:
         raise RuntimeError(f"lstm_cell kernel launch failed: CUDA error "
                            f"{err}")
@@ -158,9 +174,10 @@ def lstm_sequence(xs: torch.Tensor, wx: torch.Tensor, wh: torch.Tensor,
                              torch.Tensor | None]:
     """xs: (T, B, I); wx: (I, 4, H); wh: (H, 4, H); b: (4, H).
 
-    T steps of `lstm_cell` from h = c = 0, gate order i, f, g, o. Returns
-    (h_T, c_T, hs): hs is the (T, B, H) hidden sequence when
-    `return_sequence`, else None. On the card: one launch, on the current
+    T steps of `lstm_cell` from h = c = 0, gate order i, f, g, o; the
+    inputs all float32 or all bfloat16, float32 math, h and c carried in
+    the inputs' dtype. Returns (h_T, c_T, hs): hs is the (T, B, H) hidden
+    sequence when `return_sequence`, else None. On the card: one launch, on the current
     CUDA stream, no synchronise."""
     _check_sequence(xs, wx, wh, b)
     if xs.device.type == "cpu":
@@ -193,7 +210,8 @@ def lstm_sequence(xs: torch.Tensor, wx: torch.Tensor, wh: torch.Tensor,
     err = _sequence_entry()(xs.data_ptr(), wx.data_ptr(), wh.data_ptr(),
                             b.data_ptr(), h_out.data_ptr(), c_out.data_ptr(),
                             None if hs is None else hs.data_ptr(),
-                            t_len, bsz, i_dim, h_dim, stream)
+                            t_len, bsz, i_dim, h_dim,
+                            int(xs.dtype == torch.bfloat16), stream)
     if err:
         raise RuntimeError(f"lstm_sequence kernel launch failed: CUDA error "
                            f"{err}")

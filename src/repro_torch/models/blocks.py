@@ -1,19 +1,21 @@
-"""Block library: the block kinds the port builds so far.
+"""Block library: every block kind in configs.base.BLOCK_KINDS.
 
 Uniform interface, as in the reference:
     init_block(kind, generator, cfg)                -> params dict
     apply_block(kind, p, x, ctx, cache, mode)       -> (x', cache', aux)
 
 mode in {"prefill", "decode"} (and "train" for a forward without caches).
-ctx carries the config, positions, the decode position and the shared
-weights. The port has MAMBA and SHARED_ATTN (zamba2), MLSTM and SLSTM
-(xlstm-350m); every other kind raises NotImplementedError naming its
-ROADMAP item. The reference's sharding constraints have no counterpart on
-one card and are left out.
+ctx carries the config, positions, the decode position, the cross states
+and the shared weights. aux is a dict of scalars (the MoE load-balance
+term). The reference's sharding constraints have no counterpart on one
+card and are left out, and so is its expert-parallel MoE (`ep_moe_ffn`,
+which needs a mesh): EP-major expert weights are rebuilt into the logical
+(E, d, f) layout, as the reference does without a mesh.
 """
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -24,26 +26,197 @@ from repro_torch.kernels import ops, ref
 from repro_torch.models import attention, common
 
 LORA_RANK = 64  # zamba2 per-block adapters on the shared attention weights
-
-_NOT_PORTED = {
-    base.ATTN: "queue 1 item 9: dense attention blocks",
-    base.ATTN_LOCAL: "queue 1 item 9: dense attention blocks",
-    base.ATTN_GLOBAL: "queue 1 item 9: dense attention blocks",
-    base.MOE: "queue 1 item 9: the MoE block (_moe_ffn)",
-    base.CROSS: "queue 1 item 9: cross attention (llama-vision)",
-}
+MOE_GROUP = 2048  # the most tokens one MoE dispatch group holds
+MOE_CHUNK = 8     # dispatch groups per pass when there are many
 
 
-def not_ported(kind: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"block kind {kind!r} is not ported yet (ROADMAP, "
-        f"{_NOT_PORTED.get(kind, 'unknown kind')})")
-
-
-# =============================================================== attn + mlp
-def _init_attn_mlp(generator: torch.Generator, cfg: ModelConfig) -> dict:
-    return {"attn": attention.attn_init(generator, cfg),
+# =============================================================== dense / attn
+def _init_attn_mlp(generator: torch.Generator, cfg: ModelConfig,
+                   cross: bool = False) -> dict:
+    return {"attn": attention.attn_init(generator, cfg, cross=cross),
             "mlp": common.mlp_init(generator, cfg)}
+
+
+def _attn_window(kind: str, cfg: ModelConfig) -> Optional[int]:
+    if kind == base.ATTN_LOCAL:
+        return cfg.attn_window
+    if kind == base.ATTN_GLOBAL:
+        return None
+    # plain ATTN / MOE: cfg.attn_window if the arch is natively SWA
+    # (mixtral), else the explicit long-context window, else full
+    return cfg.attn_window or cfg.long_context_window
+
+
+def _apply_attn_block(kind, p, x, ctx, cache, mode):
+    cfg = ctx["cfg"]
+    window = _attn_window(kind, cfg)
+    if mode == "decode":
+        x, cache_a = attention.attn_decode(p["attn"], x, cache["attn"],
+                                           ctx["pos"], cfg, window=window)
+        x = common.mlp_apply(p["mlp"], x, cfg)
+        return x, {"attn": cache_a}, {}
+    x, cache_a = attention.attn_full(
+        p["attn"], x, cfg, window=window, positions=ctx.get("positions"),
+        causal=ctx.get("causal", True), make_cache=(mode == "prefill"),
+        cache_len=ctx.get("cache_len", 0))
+    x = common.mlp_apply(p["mlp"], x, cfg)
+    return x, ({"attn": cache_a} if mode == "prefill" else None), {}
+
+
+# ======================================================================== moe
+def _init_moe(generator: torch.Generator, cfg: ModelConfig) -> dict:
+    dtype = common.torch_dtype(cfg.dtype)
+    e, d, f = cfg.num_experts, cfg.d_model, cfg.d_ff
+    w_gate = common.dense_init(generator, d, e, f,
+                               dtype=dtype).transpose(0, 1)
+    w_up = common.dense_init(generator, d, e, f, dtype=dtype).transpose(0, 1)
+    w_down = common.dense_init(generator, f, e, d,
+                               dtype=dtype).transpose(0, 1)
+    if cfg.moe_ep_shards:
+        # EP-major storage, as the reference keeps it for its mesh:
+        # (E*r, d, f/r) / (E*r, f/r, d)
+        r = cfg.moe_ep_shards
+        fr = f // r
+        experts = {
+            "ep_gate": w_gate.reshape(e, d, r, fr).permute(0, 2, 1, 3)
+            .reshape(e * r, d, fr),
+            "ep_up": w_up.reshape(e, d, r, fr).permute(0, 2, 1, 3)
+            .reshape(e * r, d, fr),
+            "ep_down": w_down.reshape(e * r, fr, d)}
+    else:
+        experts = {"w_gate": w_gate.contiguous(), "w_up": w_up.contiguous(),
+                   "w_down": w_down.contiguous()}
+    return {"attn": attention.attn_init(generator, cfg),
+            "moe_norm": common.norm_init(d, dtype, generator.device),
+            "router": common.dense_init(generator, d, e,
+                                        dtype=torch.float32),
+            "experts": experts}
+
+
+def _logical_experts(we: dict, cfg: ModelConfig) -> dict:
+    """EP-major (E*r, d, f/r) / (E*r, f/r, d) expert weights as the
+    logical (E, d, f) / (E, f, d) ones; logical weights as they are."""
+    if "ep_gate" not in we:
+        return we
+    e, d, f = cfg.num_experts, cfg.d_model, cfg.d_ff
+    r = cfg.moe_ep_shards
+    fr = f // r
+    return {
+        "w_gate": we["ep_gate"].reshape(e, r, d, fr).permute(0, 2, 1, 3)
+        .reshape(e, d, f),
+        "w_up": we["ep_up"].reshape(e, r, d, fr).permute(0, 2, 1, 3)
+        .reshape(e, d, f),
+        "w_down": we["ep_down"].reshape(e, f, d)}
+
+
+def _top_k(probs: torch.Tensor, k: int):
+    """The k largest probabilities and their experts, the lower index
+    first on a tie, as `jax.lax.top_k` orders them (a stable descending
+    sort keeps equal values in index order)."""
+    w, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return w[..., :k], idx[..., :k]
+
+
+def _dispatch(h, ids, w, we, e: int, k: int, cap: int):
+    """Sort-based capacity dispatch of R groups of g tokens each, the
+    reference's `dispatch_group` over a batch of groups. h: (R, g, d);
+    ids, w: (R, g, k) experts and weights. A copy past its expert's `cap`
+    slots goes to the drop bucket and adds nothing. Returns (R, g, d)."""
+    rows, g, d = h.shape
+    n = g * k
+    dev = h.device
+    flat_e = ids.reshape(rows, n)
+    order = torch.argsort(flat_e, dim=-1, stable=True)
+    sorted_e = torch.gather(flat_e, 1, order)
+    # rank within expert among the sorted copies
+    counts = torch.zeros((rows, e), dtype=torch.int64, device=dev)
+    counts.scatter_add_(1, sorted_e, torch.ones_like(sorted_e))
+    starts = torch.cumsum(counts, dim=1) - counts
+    rank = torch.arange(n, device=dev) - torch.gather(starts, 1, sorted_e)
+    keep = rank < cap
+    slot = torch.where(keep, sorted_e * cap + rank, e * cap)  # drop bucket
+    tok = torch.div(order, k, rounding_mode="floor")
+    # slots are unique but for the drop bucket, which only gathers zeros:
+    # the sums do not depend on the order of the adds
+    row_base = (torch.arange(rows, device=dev) * (e * cap + 1))[:, None]
+    src = torch.gather(h, 1, tok[..., None].expand(rows, n, d)) \
+        * keep[..., None].to(h.dtype)
+    buf = h.new_zeros((rows * (e * cap + 1), d))
+    buf.index_add_(0, (row_base + slot).reshape(-1), src.reshape(-1, d))
+    buf = buf.reshape(rows, e * cap + 1, d)[:, :-1].reshape(rows, e, cap, d)
+    act = F.silu(torch.einsum("recd,edf->recf", buf, we["w_gate"]))
+    out = act * torch.einsum("recd,edf->recf", buf, we["w_up"])
+    out = torch.einsum("recf,efd->recd", out, we["w_down"])
+    out_flat = out.reshape(rows, e * cap, d)
+    w_sorted = torch.gather(w.reshape(rows, n), 1, order)
+    picked = torch.gather(out_flat, 1,
+                          torch.where(keep, slot, 0)[..., None]
+                          .expand(rows, n, d))
+    contrib = picked * (w_sorted * keep).to(out.dtype)[..., None]
+    # each token takes exactly k adds onto 0 (k = 2: a + b == b + a)
+    y = out.new_zeros((rows * g, d))
+    tok_base = (torch.arange(rows, device=dev) * g)[:, None]
+    y.index_add_(0, (tok_base + tok).reshape(-1), contrib.reshape(-1, d))
+    return y.reshape(rows, g, d)
+
+
+def _moe_ffn(p, x, cfg: ModelConfig):
+    """Top-k MoE with per-group capacity by sort-based dispatch (the
+    reference's `_moe_ffn`). x: (B, S, d). Returns (x + y, load-balance
+    aux)."""
+    bsz, s, d = x.shape
+    e, k = cfg.num_experts, cfg.num_experts_per_tok
+    # dispatch in groups of <= MOE_GROUP tokens, as the reference does
+    g = s
+    while g > MOE_GROUP:
+        if s % (g // 2):
+            break
+        g //= 2
+    # capacity >= k so single-token decode never drops an expert
+    cap = max(k, int(math.ceil(k * g / e * cfg.moe_capacity_factor)))
+
+    h = common.rms_norm(x, p["moe_norm"], cfg.norm_eps)
+    we = _logical_experts(p["experts"], cfg)
+    logits = h.to(torch.float32) @ p["router"]                # (B, S, E)
+    probs = torch.softmax(logits, dim=-1)
+    top_w, top_e = _top_k(probs, k)                           # (B, S, k)
+    top_w = top_w / torch.sum(top_w, dim=-1, keepdim=True)
+
+    rows = bsz * s // g
+    hr = h.reshape(rows, g, d)
+    er = top_e.reshape(rows, g, k)
+    wr = top_w.reshape(rows, g, k)
+    if rows > MOE_CHUNK and rows % MOE_CHUNK == 0:
+        # chunks of MOE_CHUNK groups one after another bound the live
+        # (E*cap, d) / (E, cap, d_ff) buffers, as the reference's lax.map
+        y = torch.cat([_dispatch(hr[i:i + MOE_CHUNK], er[i:i + MOE_CHUNK],
+                                 wr[i:i + MOE_CHUNK], we, e, k, cap)
+                       for i in range(0, rows, MOE_CHUNK)])
+    else:
+        y = _dispatch(hr, er, wr, we, e, k, cap)
+    y = y.reshape(bsz, s, d)
+    # load-balance aux (Switch-style): E * sum_e f_e * P_e
+    frac = torch.mean(F.one_hot(top_e[..., 0], e).to(torch.float32),
+                      dim=(0, 1))
+    mean_p = torch.mean(probs, dim=(0, 1))
+    aux = e * torch.sum(frac * mean_p)
+    return x + y.to(x.dtype), aux
+
+
+def _apply_moe_block(p, x, ctx, cache, mode):
+    cfg = ctx["cfg"]
+    window = _attn_window(base.MOE, cfg)
+    if mode == "decode":
+        x, cache_a = attention.attn_decode(p["attn"], x, cache["attn"],
+                                           ctx["pos"], cfg, window=window)
+    else:
+        x, cache_a = attention.attn_full(
+            p["attn"], x, cfg, window=window, positions=ctx.get("positions"),
+            make_cache=(mode == "prefill"),
+            cache_len=ctx.get("cache_len", 0))
+    x, aux = _moe_ffn(p, x, cfg)
+    cache = {"attn": cache_a} if mode in ("prefill", "decode") else None
+    return x, cache, {"moe_aux": aux}
 
 
 # ===================================================================== mamba2
@@ -153,6 +326,27 @@ def _apply_shared_attn(lora_p, x, ctx, cache, mode):
         cache_len=ctx.get("cache_len", 0))
     x = common.mlp_apply(shared["mlp"], x, cfg)
     return x, ({"attn": cache_a} if mode == "prefill" else None), {}
+
+
+# ================================================================ cross attn
+def _apply_cross(p, x, ctx, cache, mode):
+    cfg = ctx["cfg"]
+    if mode == "decode":
+        x, _ = attention.attn_decode(p["attn"], x, cache["attn"], ctx["pos"],
+                                     cfg, cross=True)
+        x = common.mlp_apply(p["mlp"], x, cfg)
+        return x, cache, {}
+    states = ctx["cross_states"]
+    x, _ = attention.attn_full(p["attn"], x, cfg, cross_states=states)
+    cache = None
+    if mode == "prefill":
+        # the cross K/V depend only on the (static) cross states: built
+        # once, without the bias, as the reference builds them
+        cache = {"attn": {
+            "k": torch.einsum("bld,dhe->bhle", states, p["attn"]["wk"]),
+            "v": torch.einsum("bld,dhe->bhle", states, p["attn"]["wv"])}}
+    x = common.mlp_apply(p["mlp"], x, cfg)
+    return x, cache, {}
 
 
 # ====================================================================== xLSTM
@@ -315,14 +509,25 @@ def _apply_slstm(p, x, ctx, cache, mode):
 
 # ================================================================= dispatch
 _INIT = {
+    base.ATTN: _init_attn_mlp,
+    base.ATTN_LOCAL: _init_attn_mlp,
+    base.ATTN_GLOBAL: _init_attn_mlp,
+    base.MOE: _init_moe,
     base.MAMBA: _init_mamba,
     base.SHARED_ATTN: _init_shared_lora,
+    base.CROSS: lambda generator, cfg: _init_attn_mlp(generator, cfg,
+                                                      cross=True),
     base.SLSTM: _init_slstm,
     base.MLSTM: _init_mlstm,
 }
 _APPLY = {
+    base.ATTN: lambda *a: _apply_attn_block(base.ATTN, *a),
+    base.ATTN_LOCAL: lambda *a: _apply_attn_block(base.ATTN_LOCAL, *a),
+    base.ATTN_GLOBAL: lambda *a: _apply_attn_block(base.ATTN_GLOBAL, *a),
+    base.MOE: _apply_moe_block,
     base.MAMBA: _apply_mamba,
     base.SHARED_ATTN: _apply_shared_attn,
+    base.CROSS: _apply_cross,
     base.SLSTM: _apply_slstm,
     base.MLSTM: _apply_mlstm,
 }
@@ -330,14 +535,10 @@ _APPLY = {
 
 def init_block(kind: str, generator: torch.Generator,
                cfg: ModelConfig) -> dict:
-    if kind not in _INIT:
-        raise not_ported(kind)
     return _INIT[kind](generator, cfg)
 
 
 def apply_block(kind: str, p, x, ctx, cache, mode: str):
-    if kind not in _APPLY:
-        raise not_ported(kind)
     return _APPLY[kind](p, x, ctx, cache, mode)
 
 
@@ -345,9 +546,18 @@ def empty_block_cache(kind: str, cfg: ModelConfig, batch: int,
                       cache_len: int, dtype: torch.dtype,
                       device: torch.device | str) -> dict:
     """Zero decode cache for one block."""
-    if kind == base.SHARED_ATTN:
-        return {"attn": attention.empty_cache(
-            batch, cfg, cache_len, cfg.long_context_window, dtype, device)}
+    if kind in (base.ATTN, base.ATTN_LOCAL, base.ATTN_GLOBAL, base.MOE,
+                base.SHARED_ATTN):
+        window = (cfg.long_context_window if kind == base.SHARED_ATTN
+                  else _attn_window(kind, cfg))
+        return {"attn": attention.empty_cache(batch, cfg, cache_len, window,
+                                              dtype, device)}
+    if kind == base.CROSS:
+        shape = (batch, cfg.num_kv_heads, cfg.cross_attn_states,
+                 cfg.head_dim)
+        return {"attn": {"k": torch.zeros(shape, dtype=dtype, device=device),
+                         "v": torch.zeros(shape, dtype=dtype,
+                                          device=device)}}
     if kind == base.MAMBA:
         d_inner = cfg.ssm_expand * cfg.d_model
         n, h, ph = cfg.ssm_state_dim, cfg.ssm_num_heads, cfg.ssm_head_dim
@@ -379,4 +589,4 @@ def empty_block_cache(kind: str, cfg: ModelConfig, batch: int,
                 "n": torch.zeros((batch, d), dtype=f32, device=device),
                 "m": torch.full((batch, d), -1e30, dtype=f32,
                                 device=device)}
-    raise not_ported(kind)
+    raise ValueError(kind)

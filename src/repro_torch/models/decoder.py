@@ -6,7 +6,9 @@ leaf stacked on a leading num_groups axis, and the shared attention block
 (zamba2) initialised once and routed through ctx. The reference's
 `lax.scan` over groups is a Python loop here; decode caches are a list
 with one dict per group, and the decode position is a host int, so a
-decode step reads nothing back from the card. The reference's sharding
+decode step reads nothing back from the card. Group leaves are drawn one
+group at a time into tensors allocated once for all groups, so a model
+that takes most of the card is never held twice. The reference's sharding
 constraints have no counterpart on one card and are left out. `loss` and
 `chunked_nll` wait for the training slice.
 """
@@ -40,12 +42,20 @@ def _mask_vocab_pad(logits: torch.Tensor, vocab_size: int) -> torch.Tensor:
     return logits + torch.where(pad, -1e30, 0.0).to(logits.dtype)
 
 
-def _stack_trees(trees: list) -> dict:
-    """[{leaf: (...)}, ...] -> {leaf: (len(trees), ...)}, nested dicts."""
-    first = trees[0]
-    if isinstance(first, dict):
-        return {k: _stack_trees([t[k] for t in trees]) for k in first}
-    return torch.stack(trees)
+def _alloc_stacked(tree, n: int):
+    """An empty tree like `tree` with a leading axis of n on every leaf."""
+    if isinstance(tree, dict):
+        return {k: _alloc_stacked(v, n) for k, v in tree.items()}
+    return tree.new_empty((n,) + tuple(tree.shape))
+
+
+def _put(stacked, tree, g: int) -> None:
+    """Copy `tree` into slot g of the stacked tree."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            _put(stacked[k], v, g)
+    else:
+        stacked[g].copy_(tree)
 
 
 def _index(tree, g: int):
@@ -56,22 +66,29 @@ def _index(tree, g: int):
 
 
 class TransformerStack:
-    """num_groups copies of cfg.group_pattern, applied one after another.
-    Shared-weight blocks (zamba2) are initialised once and reach the
-    blocks through ctx."""
+    """num_groups copies of a block pattern (cfg.group_pattern unless
+    given), applied one after another. Shared-weight blocks (zamba2) are
+    initialised once and reach the blocks through ctx."""
 
-    def __init__(self, cfg: ModelConfig):
+    def __init__(self, cfg: ModelConfig, pattern: Optional[tuple] = None,
+                 num_groups: Optional[int] = None):
         self.cfg = cfg
-        self.pattern = cfg.group_pattern
-        self.num_groups = cfg.num_groups
+        self.pattern = pattern or cfg.group_pattern
+        self.num_groups = num_groups or cfg.num_groups
         self.has_shared = base.SHARED_ATTN in self.pattern
 
+    def _init_group(self, generator: torch.Generator) -> dict:
+        return {f"b{i}_{kind}": blocks.init_block(kind, generator, self.cfg)
+                for i, kind in enumerate(self.pattern)}
+
     def init(self, generator: torch.Generator) -> dict:
-        groups = [{f"b{i}_{kind}": blocks.init_block(kind, generator,
-                                                     self.cfg)
-                   for i, kind in enumerate(self.pattern)}
-                  for _ in range(self.num_groups)]
-        p = {"groups": _stack_trees(groups)}
+        first = self._init_group(generator)
+        groups = _alloc_stacked(first, self.num_groups)
+        _put(groups, first, 0)
+        del first
+        for g in range(1, self.num_groups):
+            _put(groups, self._init_group(generator), g)
+        p = {"groups": groups}
         if self.has_shared:
             p["shared"] = blocks._init_attn_mlp(generator, self.cfg)
         return p
@@ -112,9 +129,11 @@ class TransformerStack:
 
 
 class DecoderModel:
-    """tokens -> logits, with KV/state caches.
+    """tokens (+ vision embeddings for the vlm family) -> logits, with
+    KV/state caches.
 
-    batch dict keys: "tokens" (B, L) integer token ids."""
+    batch dict keys: "tokens" (B, L) integer token ids; vlm additionally
+    "vision_embeds" (B, S_v, vision_dim)."""
 
     def __init__(self, cfg: ModelConfig):
         self.cfg = cfg
@@ -126,7 +145,8 @@ class DecoderModel:
         """Parameters drawn on `device` (default "cuda"; pass device="cpu"
         for the plain path) from `generator`, which must live there
         (default: seed 0). Constant leaves as in the reference: norms,
-        lora_b, dt_bias, a_log and conv biases 0, d_skip 1."""
+        lora_b, dt_bias, a_log, conv biases, qkv biases and gate_attn 0,
+        d_skip 1."""
         dev = resolve_device(device)
         if generator is None:
             generator = torch.Generator(device=dev).manual_seed(0)
@@ -142,6 +162,9 @@ class DecoderModel:
         if not cfg.tie_embeddings:
             p["unembed"] = common.dense_init(generator, cfg.d_model, vpad,
                                              dtype=dtype)
+        if cfg.family == "vlm":
+            p["vision_proj"] = common.dense_init(generator, cfg.vision_dim,
+                                                 cfg.d_model, dtype=dtype)
         return p
 
     # -------------------------------------------------------------- pieces
@@ -162,14 +185,24 @@ class DecoderModel:
             logits = common.softcap(logits, cfg.final_logit_softcap)
         return _mask_vocab_pad(logits, cfg.vocab_size)
 
-    def _ctx(self, cache_len: int = 0) -> dict:
-        return {"cfg": self.cfg, "causal": True, "cache_len": cache_len}
+    def _cross_states(self, p: dict, batch: dict) -> Optional[torch.Tensor]:
+        if self.cfg.family != "vlm":
+            return None
+        return batch["vision_embeds"] @ p["vision_proj"]
+
+    def _ctx(self, p: Optional[dict] = None, batch: Optional[dict] = None,
+             cache_len: int = 0) -> dict:
+        """The blocks' context; the cross states only when `batch` is
+        given (a prefill or forward; decode reads the cross caches)."""
+        cross = None if batch is None else self._cross_states(p, batch)
+        return {"cfg": self.cfg, "causal": True, "cross_states": cross,
+                "cache_len": cache_len}
 
     # ---------------------------------------------------------------- api
     def forward(self, p: dict, batch: dict):
         """Full-sequence forward. Returns (logits, aux)."""
         x = self._embed(p, batch["tokens"])
-        x, _, aux = self.stack.apply(p["stack"], x, self._ctx(),
+        x, _, aux = self.stack.apply(p["stack"], x, self._ctx(p, batch),
                                      mode="train")
         return self._head(p, x), aux
 
@@ -181,8 +214,8 @@ class DecoderModel:
         tokens = batch["tokens"]
         cache_len = max_len or tokens.shape[1]
         x = self._embed(p, tokens)
-        x, caches, _ = self.stack.apply(p["stack"], x, self._ctx(cache_len),
-                                        mode="prefill")
+        x, caches, _ = self.stack.apply(
+            p["stack"], x, self._ctx(p, batch, cache_len), mode="prefill")
         logits = self._head(p, x[:, -1:])[:, 0]
         return logits, {"pos": tokens.shape[1], "groups": caches}
 

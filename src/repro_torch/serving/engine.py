@@ -35,7 +35,7 @@ def _tree_to(tree, device: torch.device):
 
 
 class ServingEngine:
-    """Runs `model` (a `models.decoder.DecoderModel`) eagerly under
+    """Runs `model` (a `DecoderModel` or an `EncDecModel`) eagerly under
     inference mode on `device` (default "cuda"; pass device="cpu" for the
     plain path). `params` are moved there; without them the model's
     parameters are drawn there by `model.init` (random, seed 0)."""
@@ -56,7 +56,12 @@ class ServingEngine:
         are sampled from `generator` (torch cannot replay jax.random, so
         only greedy runs compare with the reference). Each clock read
         follows a synchronise, so it covers the device's work."""
+        # the modality stubs (vision_embeds, frames) in the model's dtype:
+        # torch does not promote a float32 input against bf16 weights
+        dtype = getattr(torch, self.model.cfg.dtype)
         batch = {k: torch.as_tensor(v, device=self.device)
+                 for k, v in batch.items()}
+        batch = {k: v.to(dtype) if v.is_floating_point() else v
                  for k, v in batch.items()}
         prompt = batch["tokens"].to(torch.int64)
         batch["tokens"] = prompt

@@ -111,6 +111,47 @@ def test_plain_gives_zero_for_rows_with_no_live_key():
     assert float(oracle.abs().max()) > 0
 
 
+# Lq > Lk: more queries than keys, as cross attention gives when the text
+# is longer than the cross states (the reduced llama-vision's 16). The
+# Pallas kernel's query offset Lk - Lq is then negative.
+LQ_GT_LK_CASES = [
+    # b, hq, hkv, lq, lk, d, causal, window, softcap
+    (2, 4, 2, 128, 16, 32, False, None, None),      # cross attention
+    (1, 4, 4, 256, 128, 64, False, None, 50.0),     # + softcap
+    (2, 4, 2, 256, 128, 32, True, None, None),      # causal: rows < 0 dead
+    (1, 2, 1, 256, 128, 64, True, 64, None),        # causal + window
+    (1, 2, 2, 256, 128, 32, False, 32, None),       # window alone
+]
+
+
+@pytest.mark.parametrize("case", LQ_GT_LK_CASES, ids=str)
+def test_lq_greater_than_lk_matches_pallas(case):
+    """The plain version (and the wrapper on CPU tensors) against the
+    Pallas kernel in interpret mode: non-causal without a window every
+    query sees every key; a causal row with no live key gives 0. Where
+    every row has a live key the oracle agrees too."""
+    (q, k, v), kw, pallas, oracle = _case(case)
+    tq, tk, tv = map(torch.from_numpy, (q, k, v))
+    for out in (flash_attention_plain(tq, tk, tv, **kw),
+                flash_attention(tq, tk, tv, **kw)):
+        assert out.shape == tq.shape
+        np.testing.assert_allclose(out.numpy(), pallas, atol=ATOL,
+                                   rtol=ATOL)
+    lq, lk = case[3], case[4]
+    q_pos = np.arange(lq)[:, None] + lk - lq
+    k_pos = np.arange(lk)[None, :]
+    live = np.ones((lq, lk), bool)
+    if case[6]:
+        live &= k_pos <= q_pos
+    if case[7] is not None:
+        live &= k_pos > q_pos - case[7]
+    dead = ~live.any(axis=1)
+    assert dead.any() == case[6]
+    assert not np.any(pallas[:, :, dead])
+    np.testing.assert_allclose(pallas[:, :, ~dead], oracle[:, :, ~dead],
+                               atol=ATOL, rtol=ATOL)
+
+
 def test_wrapper_on_cpu_is_the_plain_version():
     q, k, v = map(torch.from_numpy, _qkv(2, 4, 2, 40, 100, 80, seed=11))
     before = flash_attention.launches
@@ -130,12 +171,11 @@ def _args(**change):
 
 @pytest.mark.parametrize("change,msg", [
     ({"q": torch.zeros(1, 3, 16, 8)}, r"GQA needs Hq % Hkv == 0, got \(3, 2\)"),
-    ({"q": torch.zeros(1, 4, 33, 8)}, "must not exceed"),
     ({"k": torch.zeros(1, 2, 32, 4)}, "must"),
     ({"v": torch.zeros(1, 2, 31, 8)}, "must"),
     ({"q": torch.zeros(4, 16, 8)}, "4 dims"),
     ({"q": torch.zeros(1, 4, 8, 16).transpose(2, 3)}, "contiguous"),
-], ids=["gqa", "lq>lk", "k-dim", "v-shape", "ndim", "contiguous"])
+], ids=["gqa", "k-dim", "v-shape", "ndim", "contiguous"])
 def test_wrapper_rejects_bad_inputs(change, msg):
     with pytest.raises(ValueError, match=msg):
         flash_attention(**_args(**change))

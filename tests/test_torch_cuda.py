@@ -1,5 +1,7 @@
 """Tests that need the card: the CUDA kernels (lstm_cell, lstm_sequence,
-flash_attention, ssm_scan, mlstm_chunk) against their plain versions, the
+flash_attention, ssm_scan, mlstm_chunk) against their plain versions
+(lstm_cell and lstm_sequence also on bf16 inputs, flash_attention also
+with more queries than keys), the
 bf16 (tensor-core) and float32 (CUDA-core) kernels of ssm_scan and
 mlstm_chunk against each other, the bf16 flash kernel against
 scaled_dot_product_attention, the reduced zamba2 and xlstm models on CUDA
@@ -7,7 +9,9 @@ against the same models on the CPU, and the device search on CUDA against
 the same search on the CPU (both regimes, the greedy init and the
 contention-aware fleet search), and the metro engine on CUDA: a chaos pack
 to the reference's committed event-log CRC, and the default pack's fleet
-policy identical on CUDA and on the CPU.
+policy identical on CUDA and on the CPU; the rest of the LLM zoo reduced
+on CUDA against the CPU, and chip_smoke.py's one-group checks at full
+width in float32 (ONE_GROUP_CHECKS).
 Marked `cuda`; each skips with a reason where torch sees no CUDA device.
 Run them on a GPU machine with
 
@@ -188,6 +192,12 @@ FLASH_CASES = [
     (1, 4, 4, 130, 130, 72, False, None, None),
     (1, 32, 32, 1, 512, 80, True, None, None),
     (2, 32, 4, 300, 300, 80, True, 64, 30.0),
+    # Lq > Lk (tests/test_torch_attention.py::LQ_GT_LK_CASES)
+    (2, 4, 2, 128, 16, 32, False, None, None),
+    (1, 4, 4, 256, 128, 64, False, None, 50.0),
+    (2, 4, 2, 256, 128, 32, True, None, None),
+    (1, 2, 1, 256, 128, 64, True, 64, None),
+    (1, 2, 2, 256, 128, 32, False, 32, None),
 ]
 
 
@@ -426,3 +436,120 @@ def test_metro_default_fleet_cuda_matches_cpu(cuda):
         s.pop("seconds")
         s.pop("events_per_s")
     assert out[cuda] == out["cpu"]
+
+
+@pytest.mark.parametrize("mix", ["all", "h"])
+@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_lstm_cell_kernel_bf16_matches_plain(cuda, shape, mix):
+    """bf16 inputs, float32 math: every input bf16, or h alone (h' in
+    bf16, c' in float32), within one bf16 rounding (2e-2)."""
+    b, i, h = shape
+    g = torch.Generator().manual_seed(b * 1000 + i + h + 1)
+    s = 1.0 / np.sqrt(i + h)
+    args = [torch.randn(b, i, generator=g), torch.randn(b, h, generator=g),
+            torch.randn(b, h, generator=g),
+            torch.randn(i, 4, h, generator=g) * s,
+            torch.randn(h, 4, h, generator=g) * s,
+            torch.randn(4, h, generator=g) * 0.1]
+    which = range(6) if mix == "all" else (1,)
+    args = [a.to(cuda, torch.bfloat16) if j in which else a.to(cuda)
+            for j, a in enumerate(args)]
+    before = lstm_cell.launches
+    h_k, c_k = lstm_cell(*args)
+    torch.cuda.synchronize()
+    assert lstm_cell.launches == before + 1
+    assert (h_k.dtype, c_k.dtype) == (args[1].dtype, args[2].dtype)
+    h_p, c_p = lstm_cell_plain(*args)
+    torch.testing.assert_close(h_k.float(), h_p.float(), atol=2e-2, rtol=0)
+    torch.testing.assert_close(c_k.float(), c_p.float(), atol=2e-2, rtol=0)
+
+
+@pytest.mark.parametrize("t_len", [1, 48, 130])
+@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_lstm_sequence_kernel_bf16_matches_plain(cuda, shape, t_len):
+    """bf16 xs and weights: h and c carried in bf16 from step to step, as
+    the scanned plain cell carries them, within 2e-2."""
+    b, i, h = shape
+    g = torch.Generator().manual_seed(b * 1000 + i + h + t_len + 1)
+    s = 1.0 / np.sqrt(i + h)
+    args = [torch.randn(t_len, b, i, generator=g),
+            torch.randn(i, 4, h, generator=g) * s,
+            torch.randn(h, 4, h, generator=g) * s,
+            torch.randn(4, h, generator=g) * 0.1]
+    args = [a.to(cuda, torch.bfloat16) for a in args]
+    before = lstm_sequence.launches
+    h_k, c_k, hs_k = lstm_sequence(*args, return_sequence=True)
+    torch.cuda.synchronize()
+    assert lstm_sequence.launches == before + 1
+    h_p, c_p, hs_p = lstm_sequence_plain(*args, return_sequence=True)
+    assert h_k.dtype == c_k.dtype == hs_k.dtype == torch.bfloat16
+    for got, want in ((h_k, h_p), (c_k, c_p), (hs_k, hs_p)):
+        torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                                   rtol=0)
+
+
+# the rest of the LLM zoo, reduced (tests/llm_parity.py's sizes), float32
+LLM_ARCHS = {"gemma-2b": {}, "qwen2-1.5b": {},
+             "qwen2-int8": {"kv_cache_dtype": "int8"}, "gemma2-27b": {},
+             "mixtral-8x7b": {}, "llama-3.2-vision-11b": {},
+             "seamless-m4t-large-v2": {}}
+
+
+@pytest.mark.parametrize("name", sorted(LLM_ARCHS))
+def test_reduced_llm_cuda_matches_cpu(cuda, name):
+    """Prefill and greedy decode of a reduced arch on the card (the flash
+    kernel in prefill) against the same noised parameters on the CPU;
+    one flash launch per attention block in prefill, none in decode."""
+    import dataclasses
+
+    from repro_torch.data.pipeline import make_batch
+    arch = "qwen2-1.5b" if name == "qwen2-int8" else name
+    cfg = get_config(arch)
+    layers = 2 if len(cfg.group_pattern) <= 2 else None
+    cfg = dataclasses.replace(cfg.reduced(layers=layers, d_model=128,
+                                          vocab=256), **LLM_ARCHS[name])
+    model = build_model(cfg)
+    cpu = model.init(torch.Generator().manual_seed(0), device="cpu")
+    g = torch.Generator().manual_seed(1)
+    cpu = _map(cpu, lambda t: t + (0.05 * torch.randn(t.shape, generator=g))
+               .to(t.dtype))
+    params = _to(cpu, cuda)
+    batch = make_batch(cfg, 2, 40, seed=2)
+    if cfg.is_encdec:
+        attn = cfg.encoder_layers + 2 * cfg.num_layers
+    else:
+        attn = cfg.num_groups * sum(
+            k in ("attn", "attn_local", "attn_global", "moe", "cross")
+            for k in cfg.group_pattern)
+    f0 = flash_attention.launches
+    with torch.inference_mode():
+        lg, cg = model.prefill(params, _to(batch, cuda), max_len=44)
+        lc, cc = model.prefill(cpu, batch, max_len=44)
+        assert flash_attention.launches - f0 == attn
+        torch.testing.assert_close(lg.cpu(), lc, atol=1e-4, rtol=1e-4)
+        tok = lc.argmax(-1)
+        for _ in range(4):
+            lg, cg = model.decode_step(params, tok.to(cuda), cg)
+            lc, cc = model.decode_step(cpu, tok, cc)
+            torch.testing.assert_close(lg.cpu(), lc, atol=1e-4, rtol=1e-4)
+            tok = lc.argmax(-1)
+    assert flash_attention.launches - f0 == attn
+
+
+def _map(tree, fn):
+    if isinstance(tree, dict):
+        return {k: _map(v, fn) for k, v in tree.items()}
+    return fn(tree)
+
+
+@pytest.mark.parametrize("name", ["gemma2-27b", "qwen2-1.5b", "mixtral-8x7b",
+                                  "llama-3.2-vision-11b",
+                                  "seamless-m4t-large-v2"])
+def test_one_group_full_width_cuda_matches_cpu(cuda, name):
+    """chip_smoke.py's one-group check of `name` (ONE_GROUP_CHECKS): full
+    width, float32, noised parameters, card against CPU at 2e-3."""
+    import sys
+    from pathlib import Path
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+    chip_smoke.check_llm_one_group(torch, flash_attention, name)

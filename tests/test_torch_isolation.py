@@ -15,6 +15,7 @@ PORT = REPO / "src" / "repro_torch"
 def test_serve_import_loads_neither_jax_nor_repro():
     code = ("import sys, repro_torch.launch.serve\n"
             "import repro_torch.serving.engine, repro_torch.models.model_zoo\n"
+            "import repro_torch.models.encdec, repro_torch.convert\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or "
             "m.startswith('repro.'))\n"

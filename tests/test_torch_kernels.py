@@ -104,10 +104,49 @@ def test_wrapper_rejects_bad_shapes(which, shape, msg):
 
 
 def test_wrapper_rejects_non_float32():
+    """float16 is neither of the two dtypes the kernel reads."""
     args = _torch(_inputs(4, 76, 16))
-    args[3] = args[3].to(torch.bfloat16)
-    with pytest.raises(TypeError, match="float32"):
+    args[3] = args[3].to(torch.float16)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
         lstm_cell(*args)
+
+
+# which of (x, h, c, wx, wh, b) are bfloat16: all, the weights only, and
+# h alone (so h' and c' come back in different dtypes)
+BF16_MIXES = {"all": (1, 1, 1, 1, 1, 1), "weights": (0, 0, 0, 1, 1, 1),
+              "h": (0, 1, 0, 0, 0, 0)}
+# one bfloat16 rounding of h' or c' (|c'| < 4: 2^-6) on either side
+BF16_ATOL = 2 ** -6
+
+
+def _bf16_mix(args, mix):
+    """numpy inputs as torch tensors and as jnp arrays, those marked in
+    `mix` rounded to bfloat16 on both sides."""
+    port = [t.to(torch.bfloat16) if m else t
+            for t, m in zip(_torch(args), mix)]
+    ref = [jnp.asarray(t.float().numpy()).astype(jnp.bfloat16) if m
+           else jnp.asarray(t.numpy()) for t, m in zip(port, mix)]
+    return port, ref
+
+
+@pytest.mark.parametrize("mix", sorted(BF16_MIXES))
+@pytest.mark.parametrize("shape", SHAPES, ids=_ids)
+def test_plain_bf16_inputs_match_pallas_interpret(shape, mix):
+    """bfloat16 inputs, float32 math: the plain cell against the Pallas
+    cell in interpret mode, h' and c' in h's and c's dtypes, within one
+    bfloat16 rounding."""
+    port, ref_args = _bf16_mix(_inputs(*shape, seed=7), BF16_MIXES[mix])
+    h_ref, c_ref = pallas_lstm_cell(*ref_args, interpret=True)
+    for fn in (lstm_cell_plain, lstm_cell):
+        h, c = fn(*port)
+        assert h.dtype == port[1].dtype and c.dtype == port[2].dtype
+        assert str(h.dtype).removeprefix("torch.") == str(h_ref.dtype)
+        np.testing.assert_allclose(h.float().numpy(),
+                                   np.asarray(h_ref, np.float32),
+                                   atol=BF16_ATOL)
+        np.testing.assert_allclose(c.float().numpy(),
+                                   np.asarray(c_ref, np.float32),
+                                   atol=BF16_ATOL)
 
 
 def test_wrapper_rejects_non_contiguous():
@@ -184,6 +223,30 @@ def test_sequence_wrapper_rejects_bad_shapes(which, shape, msg):
     args[which] = torch.zeros(shape)
     with pytest.raises(ValueError, match=msg):
         lstm_sequence(**args)
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=_ids)
+def test_sequence_plain_bf16_matches_pallas_interpret_scan(shape):
+    """bfloat16 xs and weights: h and c carried in bfloat16 from step to
+    step, as the Pallas cell scanned over T returns them; every step's h
+    within one bfloat16 rounding of h."""
+    t_len = 48
+    port, ref_args = _bf16_mix(_seq_inputs(*shape, t_len, seed=8),
+                               (1, 1, 1, 1))
+    xs, wx, wh, b = ref_args
+    h = c = jnp.zeros((shape[0], shape[2]), jnp.bfloat16)
+    hs = []
+    for xt in xs:
+        h, c = pallas_lstm_cell(xt, h, c, wx, wh, b, interpret=True)
+        hs.append(np.asarray(h, np.float32))
+    h_p, c_p, hs_p = lstm_sequence(*port, return_sequence=True)
+    assert h_p.dtype == c_p.dtype == hs_p.dtype == torch.bfloat16
+    np.testing.assert_allclose(h_p.float().numpy(), np.asarray(h, np.float32),
+                               atol=BF16_ATOL)
+    np.testing.assert_allclose(c_p.float().numpy(), np.asarray(c, np.float32),
+                               atol=BF16_ATOL)
+    np.testing.assert_allclose(hs_p.float().numpy(), np.stack(hs),
+                               atol=BF16_ATOL)
 
 
 def test_sequence_wrapper_rejects_non_float32():

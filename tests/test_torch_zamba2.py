@@ -8,8 +8,6 @@ numpy noise added to every leaf so that no leaf sits at its constant init
 `repro_torch.convert`. Tolerance atol 1e-4 (float32 sums in another order
 through six blocks); greedy tokens must be identical.
 """
-import dataclasses
-
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -197,21 +195,25 @@ def test_init_cache_matches_reference_shapes():
             assert not t.any()
 
 
-def test_int8_kv_cache_raises(pair):
-    cfg = dataclasses.replace(_reduced(get_config), kv_cache_dtype="int8")
-    model = build_model(cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model.prefill(pair["params"],
-                      {"tokens": torch.as_tensor(pair["tokens"][:, :8])})
-
-
-SERVED = (ARCH, "xlstm-350m")     # the archs the port builds
-
-
-@pytest.mark.parametrize("name", [n for n in ARCH_NAMES if n not in SERVED])
-def test_build_model_refuses_unported_archs(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(get_config(name))
+@pytest.mark.parametrize("name", ARCH_NAMES)
+def test_build_model_builds_every_arch(name):
+    """build_model builds every arch at full size; its init tree has the
+    reference's `param_specs` leaves, shapes and dtypes. The tree is drawn
+    under FakeTensorMode (shapes and dtypes, no storage), the port's
+    counterpart of jax.eval_shape."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    want = jax.tree_util.tree_flatten_with_path(
+        ref_build_model(ref_get_config(name)).param_specs())[0]
+    model = build_model(get_config(name))
+    with FakeTensorMode():
+        params = model.init(torch.Generator().manual_seed(0), device="cpu")
+    assert len(list(convert._leaves(params))) == len(want)
+    for path, leaf in want:
+        t = params
+        for p in path:
+            t = t[p.key]
+        assert tuple(t.shape) == leaf.shape, path
+        assert str(t.dtype).removeprefix("torch.") == str(leaf.dtype), path
 
 
 @pytest.mark.parametrize("entry", ["engine", "init"])
