@@ -7,16 +7,21 @@ check it end to end.
 Phases, each of which raises on failure:
   1. environment: the card's name and power limit, torch and CUDA versions;
   2. build: every CUDA source (lstm_cell, which holds the lstm_cell step
-     and lstm_sequence kernels, flash_attention, ssm_scan, mlstm_chunk),
-     from this checkout, all nvcc processes at once;
+     and the lstm_sequence forward and backward kernels, flash_attention,
+     flash_attention_bwd, ssm_scan, mlstm_chunk), from this checkout, all
+     nvcc processes at once;
   3. each kernel against its plain PyTorch version on the card, at its
      test shapes and at the shapes the main paths give it (lstm_cell and
      lstm_sequence also on bf16 inputs; flash_attention also with more
-     queries than keys);
+     queries than keys); the training forwards' records and the two
+     backward kernels (lstm_sequence_backward, flash_attention_backward)
+     against their plain versions, float32 and bf16;
   4. the ICU LSTM models (depth 1, and depth 2, which passes a hidden
-     sequence between layers), and zamba2 and xlstm-350m at full width
-     with one group, on the card (kernel path) against the same models on
-     the CPU (plain path); then, on noised parameters, gemma2-27b (local
+     sequence between layers), their logits and their gradients (every
+     parameter's .grad through the backward kernel), and zamba2 and
+     xlstm-350m at full width with one group, on the card (kernel path)
+     against the same models on the CPU (plain path); then, on noised
+     parameters, gemma2-27b (local
      + global, window cut to 64, 8 decode steps through the ring buffer,
      also held to teacher forcing), qwen2-1.5b with the int8 KV cache,
      one mixtral-8x7b MoE layer (router flips reported with their
@@ -56,6 +61,14 @@ Phases, each of which raises on failure:
         qwen2-1.5b native and with the int8 KV cache; mixtral-8x7b at 8
         of its 32 layers (full depth does not fit one card);
         llama-3.2-vision-11b; seamless-m4t-large-v2 (flash_attention);
+     g. training (`drive_training`): the paper's offline phase (3 ICU
+        models x 60 AdamW steps) on the card and on the host CPU from the
+        same weights (lstm_sequence forward and backward); qwen2-1.5b at
+        full width and depth in bf16 through `repro_torch.launch.train`,
+        5 steps at 8 x 1024 tokens (28 flash forward and 28 backward
+        launches a step), one more step timed in parts and one traced;
+        the gradients of one qwen2 group and of reduced gemma2 against
+        the CPU; zamba2 and xlstm raising under grad on the card;
   7. timings with CUDA events (and by CUDA-graph replay, the device time
      alone, for each kernel at its main-path shape), each printed beside
      the card's name and power limit (flash_attention also at each of
@@ -66,7 +79,9 @@ Phases, each of which raises on failure:
      schedule searches on CUDA, on the host CPU and in Python (host clock
      after a synchronise), and the device search's kernel launches per
      pass-regime sweep (torch.profiler); the metro engine's events/s on
-     CUDA and on the host CPU (phase 6e's runs);
+     CUDA and on the host CPU (phase 6e's runs); the backward kernels at
+     the training paths' shapes beside cuDNN's nn.LSTM backward and
+     scaled_dot_product_attention's backward;
   8. one more run of each main path under torch.profiler (metro: the
      tabu run of mass_casualty_crash; the LLM paths zamba2-2.7b,
      xlstm-350m and gemma2-27b, traced while their engines are up):
@@ -196,6 +211,41 @@ LQ_GT_LK_ATTN = [(2, 4, 2, 128, 16, 32, False, None, None),
                  (2, 4, 2, 256, 128, 32, True, None, None),
                  (1, 2, 1, 256, 128, 64, True, 64, None),
                  (1, 2, 2, 256, 128, 32, False, 32, None)]
+# training (phases 3, 4 and 6g). The backward kernels against their plain
+# versions on the same record: lstm_sequence_backward at the ICU shapes at
+# the training batch (B = 32, T = 48) and at H = 256, flash_attention_
+# backward at ATTN_CASES, LQ_GT_LK_ATTN and TRAIN_ATTN (qwen2-1.5b's
+# training shape, GQA 6:1; gemma2's window and softcap; Lq < Lk; rows
+# with no live key). Tolerances: float32 1e-4 absolute and relative (sums
+# in another order: over 4H per step and T steps, over Lq or Lk); bf16
+# gradients are rounded to bf16 on both sides from float32 math, 2e-2, and
+# for flash every row within FLASH_BF16_ROW_REL of the plain row, a row's
+# norm taken as at least a tenth of the mean row norm (a row whose
+# gradient cancels to noise, dq of a query with one live key, has no
+# relative error to hold). The training forward's record (gates, cell
+# states) at the forward's tolerances.
+TRAIN_B = 32
+TRAIN_LSTM_SHAPES = [(TRAIN_B, i, h) for (i, h) in ((76, 16), (17, 8),
+                                                     (76, 32), (130, 256))]
+GRAD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+QWEN_TRAIN_ATTN = (8, 12, 2, 1024, 1024, 128, True, None, None)
+TRAIN_ATTN = [QWEN_TRAIN_ATTN,
+              (2, 32, 16, 512, 512, 128, True, 128, 50.0),
+              (1, 4, 2, 200, 700, 64, True, None, None),
+              (1, 2, 2, 64, 64, 32, True, 0, None)]
+# phase 6g: the paper's offline phase (each ICU workload 60 AdamW steps at
+# batch 32, float32) on the card and on the host CPU from the same
+# weights, the loss trajectories within ICU_TRAIN_RTOL of each other per
+# step (the card's gate math on the special-function unit and float32
+# sums in another order, through 60 Adam steps); qwen2-1.5b at full width
+# and depth in bf16 through launch.train, TRAIN_STEPS steps at
+# TRAIN_BATCH x TRAIN_SEQ; gradients of one group card against CPU on
+# noised weights in float32, each leaf within GRAD_ONE_GROUP_TOL of its
+# largest entry (float32 sums in another order over d_model 1536)
+ICU_TRAIN_STEPS = 60
+ICU_TRAIN_RTOL = 1e-5
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 5, 8, 1024
+GRAD_ONE_GROUP_TOL = 2e-3
 # lstm_cell / lstm_sequence on bf16 inputs (float32 math, h and c in
 # bf16): one bf16 rounding of h or c, as the other bf16 kernels' checks
 LSTM_BF16_TOL = 2e-2
@@ -315,6 +365,40 @@ def sequence_bound(shape, t_len):
     nbytes = 4 * (t_len * b * i + 4 * h * (i + h) + 4 * h + 2 * b * h)
     ops = t_len * (8 * b * h * (i + h) + 25 * b * h)
     return nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_FLOPS * 1e3
+
+
+def sequence_bwd_bound(shape, t_len):
+    """Least time (ms) of one lstm_sequence_backward call (one layer, T
+    steps, float32), as its two parts: xs, the weights, the recorded hs,
+    gates and cell states and the upstream gradients (h_T, c_T, the
+    sequence) read once and dxs and the weights' gradients written once
+    over the HBM rate; and the operations over the float32 rate: per step
+    the chain's dh . wh^T (8 B H H) and ~20 pointwise operations per
+    unit, then dxs, dwx (8 T B H I each), dwh (8 T B H H) and db."""
+    b, i, h = shape
+    t = t_len
+    nbytes = 4 * (t * b * i + 4 * h * (i + h) + t * b * h + t * b * 4 * h
+                  + t * b * h + 2 * b * h + t * b * h
+                  + t * b * i + 4 * h * (i + h) + 4 * h)
+    ops = t * (8 * b * h * h + 20 * b * h) + 16 * t * b * h * i \
+        + 8 * t * b * h * h + 4 * t * b * h
+    return nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_FLOPS * 1e3
+
+
+def flash_bwd_bound(case):
+    """Least time (ms) of one flash_attention_backward call in bf16, as
+    its two parts: q, k, v, O, dO (bf16) and the row log-sum-exp (f32)
+    read once and dq, dk, dv (bf16) written once over the HBM rate; and
+    2.5 times the forward's products over the live pairs (S recomputed,
+    dP, dV, dQ, dK: five products of 2 D FLOPs per live pair against the
+    forward's two) at the bf16 tensor-core rate."""
+    b, hq, hkv, lq = case[:4]
+    by_bytes, fwd_ops = flash_bound(case, 2, BF16_FLOPS)
+    d = case[5]
+    # besides the forward's q, k, v, O: dO read, dq, dk, dv written
+    extra = 2 * d * (2 * b * hq * lq + 2 * b * hkv * case[4]) \
+        + 4 * b * hq * lq
+    return by_bytes + extra / HBM_BYTES_PER_S * 1e3, 2.5 * fwd_ops
 
 
 def serial_estimate(shape, t_len):
@@ -1385,6 +1469,517 @@ def time_fleet(torch, cuda, card):
 
 
 
+def grad_close(torch, got, want, dtype_name):
+    """Max |got - want| and whether got is within GRAD_TOL of want (bf16:
+    and every row within FLASH_BF16_ROW_REL of the plain row, a row's
+    norm taken as at least a tenth of the mean row norm)."""
+    g, w = got.float(), want.float()
+    tol = GRAD_TOL[dtype_name]
+    ok = got.dtype == want.dtype and torch.allclose(g, w, atol=tol, rtol=tol)
+    if dtype_name == "bfloat16" and w.dim() > 1:
+        gap, size = (g - w).norm(dim=-1), w.norm(dim=-1)
+        floor = 0.1 * size.mean()
+        ok = ok and bool((gap <= FLASH_BF16_ROW_REL
+                          * torch.clamp(size, min=floor)).all())
+    return float((g - w).abs().max()), ok
+
+
+def check_lstm_backward(torch, cuda):
+    """Phase 3: the training forward of lstm_sequence (its record: hs, the
+    activated gates, the cell states) and lstm_sequence_backward against
+    their plain versions, float32 and bf16, at TRAIN_LSTM_SHAPES and T =
+    ICU_T, with upstream gradients on h_T, c_T and the hidden sequence
+    (what a layer below a second layer receives). Returns the largest
+    float32 gradient error."""
+    from repro_torch.kernels.lstm_cell import (
+        lstm_sequence_backward, lstm_sequence_backward_plain,
+        lstm_sequence_train, lstm_sequence_train_plain)
+    worst = 0.0
+    for k, shape in enumerate(TRAIN_LSTM_SHAPES):
+        b, _, h = shape
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).removeprefix("torch.")
+            args = [t.to(dtype) for t in
+                    sequence_inputs(torch, shape, ICU_T, cuda, seed=800 + k)]
+            g = torch.Generator().manual_seed(900 + k)
+            ups = [torch.randn(s_, generator=g).to(cuda, dtype)
+                   for s_ in ((b, h), (b, h), (ICU_T, b, h))]
+            rec = lstm_sequence_train(*args)
+            want = lstm_sequence_train_plain(*args)
+            fwd_tol = KERNEL_ATOL if dtype == torch.float32 \
+                else LSTM_BF16_TOL
+            fwd_err = max(float((a.float() - w.float()).abs().max())
+                          for a, w in zip(rec, want))
+            before = lstm_sequence_backward.launches
+            grads = lstm_sequence_backward(args[0], args[1], args[2],
+                                           *rec[2:], *ups)
+            launched = lstm_sequence_backward.launches - before
+            plain = lstm_sequence_backward_plain(args[0], args[1], args[2],
+                                                 *rec[2:], *ups)
+            torch.cuda.synchronize()
+            errs = [grad_close(torch, a, w, name)
+                    for a, w in zip(grads, plain)]
+            err = max(e for e, _ in errs)
+            print(f"lstm_sequence_backward {shape} T={ICU_T} {name}: "
+                  f"training forward's record max |kernel - plain| "
+                  f"{fwd_err:.3e} (atol {fwd_tol}); max |kernel - plain| "
+                  f"(dxs, dwx, dwh, db) = {err:.3e} (atol = rtol = "
+                  f"{GRAD_TOL[name]}); launches {launched}")
+            if not fwd_err <= fwd_tol or not all(ok for _, ok in errs) or \
+                    launched != 1:
+                raise RuntimeError(f"lstm_sequence_backward {shape} {name}: "
+                                   f"kernel and plain version disagree")
+            if dtype == torch.float32:
+                worst = max(worst, err)
+    return worst
+
+
+def check_flash_backward(torch, cuda):
+    """Phase 3: the training forward's row log-sum-exp and
+    flash_attention_backward against their plain versions, float32 and
+    bf16, at ATTN_CASES, LQ_GT_LK_ATTN and TRAIN_ATTN. Returns {(case,
+    dtype name): max gradient error}."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_backward, flash_attention_backward_plain,
+        flash_attention_lse, flash_attention_lse_plain)
+    errs = {}
+    for k, case in enumerate(ATTN_CASES + LQ_GT_LK_ATTN + TRAIN_ATTN):
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).removeprefix("torch.")
+            q, kk, v = flash_inputs(torch, case, dtype, cuda, seed=1000 + k)
+            dout = flash_inputs(torch, case, dtype, cuda, seed=2000 + k)[0]
+            kw = flash_kwargs(case)
+            out, lse = flash_attention_lse(q, kk, v, **kw)
+            _, lse_p = flash_attention_lse_plain(q, kk, v, **kw)
+            live = torch.isfinite(lse_p)
+            lse_err = float((lse[live] - lse_p[live]).abs().max()) \
+                if bool(live.any()) else 0.0
+            lse_ok = bool((torch.isfinite(lse) == live).all()) and \
+                lse_err <= 1e-4
+            before = flash_attention_backward.launches
+            grads = flash_attention_backward(q, kk, v, out, lse, dout, **kw)
+            launched = flash_attention_backward.launches - before
+            plain = flash_attention_backward_plain(q, kk, v, out, lse, dout,
+                                                   **kw)
+            torch.cuda.synchronize()
+            res = [grad_close(torch, a, w, name)
+                   for a, w in zip(grads, plain)]
+            err = max(e for e, _ in res)
+            print(f"flash_attention_backward {case} {name}: lse max |kernel "
+                  f"- plain| {lse_err:.3e} on {int(live.sum())} live rows "
+                  f"(atol 1e-4); max |kernel - plain| (dq, dk, dv) = "
+                  f"{err:.3e} (atol = rtol = {GRAD_TOL[name]}"
+                  + (f", rows {FLASH_BF16_ROW_REL}" if name == "bfloat16"
+                     else "") + f"); launches {launched}")
+            if not lse_ok or not all(ok for _, ok in res) or \
+                    launched != 1:
+                raise RuntimeError(f"flash_attention_backward {case} {name}:"
+                                   f" kernel and plain version disagree")
+            errs[(case, name)] = err
+            del q, kk, v, dout, out, lse, grads, plain
+    return errs
+
+
+def check_icu_grads(torch, cuda, kernels):
+    """Phase 4: the ICU models (depth 1 and 2) under loss.backward() on
+    the card against the CPU on the same weights and batch: every
+    parameter's .grad set, finite, non-zero and within MODEL_ATOL, and one
+    lstm_sequence_backward launch per layer (the fault this slice repairs:
+    on the card the kernels returned tensors autograd could not see, and
+    only the head trained)."""
+    from repro_torch.configs.icu_lstm import ICU_WORKLOADS
+    from repro_torch.data import icu
+    from repro_torch.models.lstm import ICULSTM
+    bwd = kernels["lstm_sequence_backward"]
+    for cfg in [c for base in ICU_WORKLOADS
+                for c in (base, dataclasses.replace(base, depth=2))]:
+        x, y = icu.generate(cfg, TRAIN_B, seed=5)
+        grads, launched = {}, {}
+        for d in (cuda, torch.device("cpu")):
+            model = ICULSTM(cfg, generator=torch.Generator().manual_seed(7),
+                            device=d)
+            before = bwd.launches
+            model.loss({"features": torch.as_tensor(x, device=d),
+                        "labels": torch.as_tensor(y, device=d)}).backward()
+            launched[d.type] = bwd.launches - before
+            grads[d.type] = {n: p.grad for n, p in model.named_parameters()}
+        launched = launched["cuda"]
+        bad = [n for n, g in grads["cuda"].items()
+               if g is None or not bool(torch.isfinite(g).all())
+               or not bool(g.abs().max() > 0)]
+        err = max(float((g.cpu() - grads["cpu"][n]).abs().max())
+                  for n, g in grads["cuda"].items() if g is not None)
+        print(f"ICULSTM {cfg.name} depth {cfg.depth} loss.backward(): "
+              f"{len(grads["cuda"])} parameters, without a finite non-zero "
+              f".grad: {bad or 'none'}; max |cuda - cpu| grad {err:.3e} "
+              f"(atol {MODEL_ATOL}); lstm_sequence_backward launches "
+              f"{launched}")
+        if bad or not err <= MODEL_ATOL or \
+                launched != cfg.depth:
+            raise RuntimeError(f"{cfg.name} depth {cfg.depth}: gradients "
+                               f"missing or wrong")
+
+
+def grads_card_vs_cpu(torch, model, p_gpu, batch, kernels, label):
+    """The gradient of `model.loss` on the card from `p_gpu` (float32)
+    and on the CPU from a copy, on `batch`: raises unless every leaf's
+    card gradient is finite and non-zero and within GRAD_ONE_GROUP_TOL of
+    its largest CPU entry. Returns (max relative error, loss on the card,
+    loss on the CPU, {kernel: launches on the card})."""
+    cuda = next(leaves(p_gpu)).device
+    p_cpu = tree_to(p_gpu, "cpu")
+    out = {}
+    for dev, p in ((cuda, p_gpu), (torch.device("cpu"), p_cpu)):
+        ls = list(leaves(p))
+        for t in ls:
+            t.requires_grad_(True)
+        b = {k: v.to(dev) for k, v in batch.items()}
+        before = {n: k.launches for n, k in kernels.items()}
+        loss = model.loss(p, b)
+        grads = torch.autograd.grad(loss, ls)
+        torch.cuda.synchronize()
+        launched = {n: k.launches - before[n] for n, k in kernels.items()}
+        out[dev] = (float(loss.detach()), grads, launched)
+        for t in ls:
+            t.requires_grad_(False)
+    out["cuda"], out["cpu"] = out[cuda], out[torch.device("cpu")]
+    worst, bad = 0.0, 0
+    for g, c in zip(out["cuda"][1], out["cpu"][1]):
+        if not bool(torch.isfinite(g).all()) or not bool(g.abs().max() > 0):
+            bad += 1
+        scale = max(float(c.abs().max()), 1e-30)
+        worst = max(worst, float((g.cpu() - c).abs().max()) / scale)
+    n = len(out["cuda"][1])
+    print(f"{label}: loss cuda {out['cuda'][0]:.6f}, cpu "
+          f"{out['cpu'][0]:.6f}; {n} parameter leaves, {bad} without a "
+          f"finite non-zero gradient on the card; max over leaves of "
+          f"max |cuda - cpu| / max |cpu| = {worst:.3e} (<= "
+          f"{GRAD_ONE_GROUP_TOL}); launches on the card "
+          f"{out['cuda'][2]}")
+    if bad or not worst <= GRAD_ONE_GROUP_TOL or \
+            abs(out["cuda"][0] - out["cpu"][0]) > 1e-3:
+        raise RuntimeError(f"{label}: gradients differ or are missing")
+    return worst, out["cuda"][0], out["cpu"][0], out["cuda"][2]
+
+
+def expect_launches(label, got, want):
+    """Raise unless a run's launches per kernel are the expected ones."""
+    if got != want:
+        raise RuntimeError(f"{label}: launches {got}, expected {want}")
+
+
+def step_breakdown(prof):
+    """Device self time (ms) of a traced training step by kind: GEMMs
+    (cuBLAS's gemm / xmma / nvjet kernels, CUTLASS), flash forward, flash
+    backward, and the rest (elementwise passes, reductions, copies, the
+    optimizer's updates)."""
+    from torch.autograd import DeviceType
+    kinds = {"gemm": 0.0, "flash forward": 0.0, "flash backward": 0.0,
+             "other": 0.0}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CPU:
+            continue
+        key = e.key.lower()
+        kind = ("flash backward" if "flash_bwd" in key
+                else "flash forward" if "flash_" in key
+                else "gemm" if any(w in key for w in (
+                    "gemm", "xmma", "cutlass", "cublas", "nvjet"))
+                else "other")
+        kinds[kind] += e.self_device_time_total / 1e3
+    return kinds
+
+
+def drive_training(torch, kernels, card):
+    """Phase 6g, the training paths, every counter set to 0 just before
+    each run and read just after:
+      a. the paper's offline phase (`launch.train.train_offline`, 60 steps
+         per ICU workload at batch 32, float32) on the card and on the host
+         CPU from the same weights: loss trajectories within
+         ICU_TRAIN_RTOL per step, held-out accuracies printed; one
+         lstm_sequence and one lstm_sequence_backward launch per step;
+      b. qwen2-1.5b at full width and depth, bf16, `launch.train.run`:
+         TRAIN_STEPS AdamW steps on MarkovTokenDataset at TRAIN_BATCH x
+         TRAIN_SEQ: losses finite and the last below step 0's; 28 flash
+         forward and 28 backward launches per step, nothing else; seconds
+         per step, tokens/s and peak memory; one more step timed as
+         forward + backward and optimizer apart, and one traced
+         (torch.profiler): device busy share and where its time goes;
+      c. the gradient of one qwen2-1.5b group at full width and of reduced
+         gemma2 (window 64 biting at 160 tokens, softcaps), float32 on
+         noised weights, card against CPU (`grads_card_vs_cpu`);
+      d. zamba2 and xlstm (reduced) under grad on the card raise the
+         stated NotImplementedError (ssm_scan, mlstm_chunk).
+    Returns {"icu": launches of a, "qwen2": launches of b, "step_s": ...}.
+    """
+    import gc
+
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.icu_lstm import ICU_WORKLOADS
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.launch import train
+    from repro_torch.models import build_model
+    from repro_torch.models.lstm import ICULSTM
+    from repro_torch.training import optimizer, train_loop
+    cuda = torch.device("cuda")
+
+    def reset():
+        for k in kernels.values():
+            k.launches = 0
+
+    def counts():
+        return {n: k.launches for n, k in kernels.items()}
+
+    # a. the offline phase, card and host CPU from the same weights
+    sds = {wl.name: ICULSTM(wl, generator=torch.Generator().manual_seed(0),
+                            device="cpu").state_dict()
+           for wl in ICU_WORKLOADS}
+    reset()
+    t0 = time.perf_counter()
+    on_card = train.train_offline(ICU_TRAIN_STEPS, device=cuda,
+                                  state_dicts=sds)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    icu_launches = counts()
+    t0 = time.perf_counter()
+    on_cpu = train.train_offline(ICU_TRAIN_STEPS, device="cpu",
+                                 state_dicts=sds, log_fn=lambda *_: None)
+    cpu_s = time.perf_counter() - t0
+    steps = ICU_TRAIN_STEPS * len(ICU_WORKLOADS)
+    for name, res in on_card.items():
+        a, b = np.asarray(res["losses"]), np.asarray(on_cpu[name]["losses"])
+        rel = float(np.max(np.abs(a - b) / np.abs(b)))
+        print(f"offline phase {name}: loss {a[0]:.4f} -> {a[-1]:.4f} on "
+              f"the card, {b[0]:.4f} -> {b[-1]:.4f} on the host CPU; max "
+              f"relative gap per step {rel:.3e} (<= {ICU_TRAIN_RTOL}); "
+              f"held-out accuracy card {res['accuracy']:.2%}, cpu "
+              f"{on_cpu[name]['accuracy']:.2%}")
+        if not np.isfinite(a).all() or not rel <= ICU_TRAIN_RTOL:
+            raise RuntimeError(f"offline phase {name}: card and CPU "
+                               f"trajectories differ")
+    print(f"[{card}] offline phase: {steps} steps in {card_s:.3f} s on "
+          f"the card ({card_s / steps * 1e3:.3f} ms per step, host clock, "
+          f"accuracy passes included), {cpu_s:.3f} s as torch on the host "
+          f"CPU; launches {icu_launches}")
+    expect_launches("offline phase", icu_launches, dict(
+        {n: 0 for n in kernels}, lstm_sequence=steps + len(ICU_WORKLOADS),
+        lstm_sequence_backward=steps))
+
+    # b. qwen2-1.5b at full width and depth through launch.train
+    reset()
+    held = torch.cuda.memory_allocated()
+    run = train.run("qwen2-1.5b", steps=TRAIN_STEPS, batch=TRAIN_BATCH,
+                    seq=TRAIN_SEQ, device=cuda, log_every=1)
+    qwen_launches = counts()
+    cfg = run.cfg
+    n_params = sum(t.numel() for t in leaves(run.params))
+    per_step = {n: c / TRAIN_STEPS for n, c in qwen_launches.items()}
+    later = run.step_seconds[1:]
+    step_s = statistics.median(later)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    print(f"qwen2-1.5b training: {n_params / 1e9:.3f} B parameters (bf16), "
+          f"losses {[round(x, 4) for x in run.losses]}; launches "
+          f"{qwen_launches} ({per_step['flash_attention']:.0f} flash "
+          f"forward and {per_step['flash_attention_backward']:.0f} backward "
+          f"per step)")
+    print(f"[{card}] qwen2-1.5b training {TRAIN_BATCH} x {TRAIN_SEQ}: "
+          f"step 0 {run.step_seconds[0]:.3f} s, steps 1-{TRAIN_STEPS - 1} "
+          f"{[round(x, 4) for x in later]} s (median {step_s:.4f} s, "
+          f"{tokens / step_s:.0f} tokens/s); peak device memory "
+          f"{((run.peak_bytes or 0) - held) / 1e9:.2f} GB (max_memory_allocated "
+          f"less the {held / 1e9:.2f} GB held before)")
+    if not np.isfinite(run.losses).all() or \
+            not run.losses[-1] < run.losses[0]:
+        raise RuntimeError(f"qwen2-1.5b training: losses {run.losses}")
+    expect_launches("qwen2-1.5b training", qwen_launches, dict(
+        {n: 0 for n in kernels},
+        flash_attention=cfg.num_layers * TRAIN_STEPS,
+        flash_attention_backward=cfg.num_layers * TRAIN_STEPS))
+    # one more step in two parts (host clock after a synchronise), then
+    # one traced
+    batch = next(run.batches)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss, grads = train_loop._grads_of(run.model, run.params, batch)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    params, opt_state, _ = optimizer.update(
+        train.opt_config(3e-4, TRAIN_STEPS), grads, run.opt_state,
+        run.params)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    del grads
+    print(f"[{card}] qwen2-1.5b one step in parts: loss + gradients "
+          f"{t1 - t0:.4f} s, AdamW update {t2 - t1:.4f} s (loss "
+          f"{float(loss):.4f})")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        params, opt_state, m = run.step_fn(params, opt_state,
+                                           next(run.batches))
+        float(m["loss"])
+        torch.cuda.synchronize()
+        traced_s = time.perf_counter() - t0
+    busy_s, _ = print_profile(prof, f"[{card}] traced qwen2-1.5b training "
+                              f"step ({TRAIN_BATCH} x {TRAIN_SEQ})",
+                              traced_s, 10)
+    kinds = step_breakdown(prof)
+    print(f"[{card}] traced qwen2-1.5b training step, device time by kind: "
+          + ", ".join(f"{k} {v:.2f} ms" for k, v in kinds.items())
+          + f"; host (wall less device busy) "
+          f"{(traced_s - busy_s) * 1e3:.2f} ms")
+    del run, params, opt_state, batch, loss, m, prof
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # c. gradients card vs CPU: one qwen2 group at full width, reduced
+    # gemma2 with its window biting, float32, noised weights
+    for label, cfg, shape, seed in (
+            ("qwen2-1.5b one group", dataclasses.replace(
+                get_config("qwen2-1.5b"), num_layers=1, num_groups=1,
+                dtype="float32"), (1, 128), 50),
+            ("gemma2-27b reduced", get_config("gemma2-27b").reduced(
+                layers=2, d_model=128, vocab=256), (2, 160), 51)):
+        model = build_model(cfg)
+        p_gpu = noised(torch, model.init(torch.Generator(cuda).manual_seed(
+            seed), device=cuda), seed=seed + 10)
+        batch = make_batch(cfg, *shape, seed=seed)
+        _, _, _, launched = grads_card_vs_cpu(
+            torch, model, p_gpu, batch, kernels,
+            f"{label} gradient, float32, noised, tokens {shape}, window "
+            f"{cfg.attn_window}")
+        n_attn = cfg.num_layers
+        expect_launches(label, launched, dict(
+            {n: 0 for n in kernels}, flash_attention=n_attn,
+            flash_attention_backward=n_attn))
+        del p_gpu
+    torch.cuda.empty_cache()
+
+    # d. no backward kernel yet: raise under grad on the card
+    for name, kernel in (("zamba2-2.7b", "ssm_scan"),
+                         ("xlstm-350m", "mlstm_chunk")):
+        cfg = get_config(name).reduced(layers=2, d_model=128, vocab=256)
+        model = build_model(cfg)
+        p = model.init(torch.Generator(cuda).manual_seed(0), device=cuda)
+        for t in leaves(p):
+            t.requires_grad_(True)
+        try:
+            model.loss(p, {k: v.to(cuda) for k, v in
+                           make_batch(cfg, 1, 64).items()})
+        except NotImplementedError as e:
+            print(f"{name} (reduced) under grad on the card: "
+                  f"NotImplementedError: {e}")
+            if kernel not in str(e):
+                raise
+        else:
+            raise RuntimeError(f"{name} under grad on the card did not "
+                               f"raise")
+    return {"icu": icu_launches, "qwen2": qwen_launches, "step_s": step_s,
+            "tokens_s": tokens / step_s}
+
+
+def time_backward(torch, cuda, card):
+    """Phase 7 for the backward kernels. lstm_sequence_backward at each
+    ICU shape at the training batch (B = 32, T = 48, float32, upstream
+    gradient on h_T, zeros on c_T and the sequence, as a depth-1 ICULSTM's
+    loss gives them): the wrapper (the chain kernel and the products off
+    it), its plain version and cuDNN's nn.LSTM backward (TF32 off) at the
+    same shape. flash_attention_backward at qwen2-1.5b's training shape
+    (bf16, causal, GQA 6:1): the wrapper (its three launches), the plain
+    version and SDPA's backward (enable_gqa); the forward with and
+    without the row log-sum-exp. Returns ({shape: times}, flash times)."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention, flash_attention_backward,
+        flash_attention_backward_plain, flash_attention_lse)
+    from repro_torch.kernels.lstm_cell import (
+        lstm_sequence_backward, lstm_sequence_backward_plain,
+        lstm_sequence_train)
+    per = {}
+    allow_tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    for k, shape in enumerate(TRAIN_LSTM_SHAPES[:3]):
+        b, i, h = shape
+        args = sequence_inputs(torch, shape, ICU_T, cuda, seed=1100 + k)
+        rec = lstm_sequence_train(*args)
+        ups = (torch.randn(b, h, device=cuda), torch.zeros(b, h,
+                                                           device=cuda),
+               torch.zeros(ICU_T, b, h, device=cuda))
+        bwd_args = (args[0], args[1], args[2], *rec[2:], *ups)
+        lstm = torch.nn.LSTM(i, h).to(cuda)
+        with torch.no_grad():
+            lstm.weight_ih_l0.copy_(args[1].reshape(i, 4 * h).t())
+            lstm.weight_hh_l0.copy_(args[2].reshape(h, 4 * h).t())
+            lstm.bias_ih_l0.copy_(args[3].reshape(4 * h))
+            lstm.bias_hh_l0.zero_()
+        x = args[0].clone().requires_grad_()
+        _, (h_n, _) = lstm(x)
+        inputs = [x] + list(lstm.parameters())
+
+        def lib():
+            return torch.autograd.grad(h_n, inputs, ups[0][None],
+                                       retain_graph=True)
+        t = {"ms": event_ms(torch, lambda: lstm_sequence_backward(
+                 *bwd_args), 500),
+             "graph_ms": graph_ms(torch, lambda: lstm_sequence_backward(
+                 *bwd_args)),
+             "plain_ms": event_ms(torch, lambda: lstm_sequence_backward_plain(
+                 *bwd_args), 20, warmup=3),
+             "library_ms": event_ms(torch, lib, 300)}
+        t["bytes_ms"], t["ops_ms"] = sequence_bwd_bound(shape, ICU_T)
+        t["bound_ms"] = max(t["bytes_ms"], t["ops_ms"])
+        t["bound_by"] = "bytes" if t["bytes_ms"] >= t["ops_ms"] \
+            else "operations"
+        per[shape] = t
+        print(f"[{card}] lstm_sequence_backward B,I,H={shape} T={ICU_T} "
+              f"float32: wrapper (chain kernel + products) {t['ms']:.5f} "
+              f"ms, replayed from a CUDA graph {t['graph_ms']:.5f} ms, "
+              f"plain {t['plain_ms']:.5f} ms, cuDNN nn.LSTM backward "
+              f"{t['library_ms']:.5f} ms, bound {t['bound_ms']:.6f} ms "
+              f"({t['bound_by']}), launches per offline-phase step 1")
+        del lstm, x, h_n, inputs
+    torch.backends.cudnn.allow_tf32 = allow_tf32
+
+    case = QWEN_TRAIN_ATTN
+    q, kk, v = flash_inputs(torch, case, torch.bfloat16, cuda, seed=1200)
+    dout = flash_inputs(torch, case, torch.bfloat16, cuda, seed=1201)[0]
+    kw = flash_kwargs(case)
+    out, lse = flash_attention_lse(q, kk, v, **kw)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    ql, kl, vl = (t.clone().requires_grad_() for t in (q, kk, v))
+    o_lib = sdpa(ql, kl, vl, is_causal=True, enable_gqa=True)
+
+    def lib():
+        return torch.autograd.grad(o_lib, (ql, kl, vl), dout,
+                                   retain_graph=True)
+    lib_err = max(float((a.float() - b.float()).abs().max())
+                  for a, b in zip(lib(), flash_attention_backward(
+                      q, kk, v, out, lse, dout, **kw)))
+    ft = {"ms": event_ms(torch, lambda: flash_attention_backward(
+              q, kk, v, out, lse, dout, **kw), 20, warmup=3),
+          "plain_ms": event_ms(torch, lambda: flash_attention_backward_plain(
+              q, kk, v, out, lse, dout, **kw), 3, warmup=1),
+          "library_ms": event_ms(torch, lib, 20, warmup=3),
+          "fwd_ms": event_ms(torch, lambda: flash_attention(q, kk, v, **kw),
+                             20, warmup=3),
+          "fwd_lse_ms": event_ms(torch, lambda: flash_attention_lse(
+              q, kk, v, **kw), 20, warmup=3)}
+    by_bytes, by_ops = flash_bwd_bound(case)
+    ft["bound_ms"] = max(by_bytes, by_ops)
+    ft["bound_by"] = "bytes" if by_bytes >= by_ops else "operations"
+    print(f"[{card}] flash_attention_backward {case} bf16 (tensor cores, "
+          f"mma.sync): {ft['ms']:.4f} ms (3 launches), plain "
+          f"{ft['plain_ms']:.4f} ms, SDPA backward {ft['library_ms']:.4f} "
+          f"ms (max |sdpa - kernel| {lib_err:.3e}), kernel / SDPA "
+          f"{ft['ms'] / ft['library_ms']:.2f}, bound bytes {by_bytes:.6f} "
+          f"ms / operations {by_ops:.6f} ms (kernel / bound "
+          f"{ft['ms'] / ft['bound_ms']:.1f}); forward at the same shape "
+          f"{ft['fwd_ms']:.5f} ms, with the row log-sum-exp "
+          f"{ft['fwd_lse_ms']:.5f} ms; launches per training step 28")
+    return per, ft
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1400,10 +1995,11 @@ def main():
     from repro_torch.data import icu
     from repro_torch.data.pipeline import make_batch
     from repro_torch.kernels import build
-    from repro_torch.kernels.flash_attention import (flash_attention,
-                                                     flash_attention_plain)
+    from repro_torch.kernels.flash_attention import (
+        flash_attention, flash_attention_backward, flash_attention_plain)
     from repro_torch.kernels.lstm_cell import (lstm_cell, lstm_cell_plain,
                                                lstm_sequence,
+                                               lstm_sequence_backward,
                                                lstm_sequence_plain)
     from repro_torch.kernels.mlstm_chunk import mlstm_chunk, mlstm_chunk_plain
     from repro_torch.kernels.ssm_scan import ssm_scan, ssm_scan_plain
@@ -1423,8 +2019,8 @@ def main():
 
     # 2. build
     t0 = time.perf_counter()
-    libs = build.build("lstm_cell", "flash_attention", "ssm_scan",
-                       "mlstm_chunk")
+    libs = build.build("lstm_cell", "flash_attention", "flash_attention_bwd",
+                       "ssm_scan", "mlstm_chunk")
     print(f"build: {len(libs)} kernel(s) in "
           f"{time.perf_counter() - t0:.2f} s")
 
@@ -1582,6 +2178,15 @@ def main():
                                    f"plain version disagree")
             mlstm_err[(shape, name)] = max(errs.values())
 
+    # the backward kernels (training) against their plain versions
+    lstm_bwd_err = check_lstm_backward(torch, cuda)
+    flash_bwd_err = check_flash_backward(torch, cuda)
+    kernels = {"lstm_cell": lstm_cell, "lstm_sequence": lstm_sequence,
+               "lstm_sequence_backward": lstm_sequence_backward,
+               "flash_attention": flash_attention,
+               "flash_attention_backward": flash_attention_backward,
+               "ssm_scan": ssm_scan, "mlstm_chunk": mlstm_chunk}
+
     # 4. models on the card vs the same models on the CPU: the three ICU
     # workloads as configured (depth 1) and stacked to depth 2
     for cfg in [c for base in ICU_WORKLOADS
@@ -1651,12 +2256,15 @@ def main():
     for name in ONE_GROUP_CHECKS:
         check_llm_one_group(torch, flash_attention, name)
 
+    # the ICU models' gradients on the card (the repaired fault)
+    check_icu_grads(torch, cuda, kernels)
+
     # 5. device search: CUDA vs CPU on integer instances
     check_device_search(torch, cuda)
 
     # 6. the main path, with every counter read around it alone
-    lstm_cell.launches = 0
-    lstm_sequence.launches = 0
+    for k in kernels.values():
+        k.launches = 0
     scheduler_torch.tabu_search_batched.calls = 0
     t0 = time.perf_counter()
     results, lb = serve.run(patients=SERVE_PATIENTS, horizon=30.0, seed=0,
@@ -1665,6 +2273,8 @@ def main():
     serve_s = time.perf_counter() - t0
     launches = lstm_sequence.launches
     step_launches = lstm_cell.launches
+    others = {n: k.launches for n, k in kernels.items()
+              if n not in ("lstm_sequence", "lstm_cell")}
     search_calls = scheduler_torch.tabu_search_batched.calls
     ours = results["ours (algorithm 2)"]
     for name, sched in results.items():
@@ -1689,22 +2299,18 @@ def main():
     # one inference per job, two per workload in calibrate, each one
     # launch per layer (depth 1)
     want = (SERVE_PATIENTS + 2 * len(ICU_WORKLOADS)) * ICU_WORKLOADS[0].depth
-    if (launches, step_launches) != (want, 0):
+    if (launches, step_launches) != (want, 0) or any(others.values()):
         raise RuntimeError(f"serve.run: lstm_sequence launches {launches}, "
-                           f"lstm_cell launches {step_launches}; expected "
-                           f"{want} and 0")
+                           f"lstm_cell launches {step_launches}, others "
+                           f"{others}; expected {want}, 0 and none")
 
     # 6b, 6c. the LLM serving paths, each with every counter read around
     # it alone
-    kernels = {"lstm_cell": lstm_cell, "lstm_sequence": lstm_sequence,
-               "flash_attention": flash_attention, "ssm_scan": ssm_scan,
-               "mlstm_chunk": mlstm_chunk}
     zcfg = get_config("zamba2-2.7b")
     zengine, zbatch, zl, _ = drive_generate(
-        torch, zcfg, kernels, {"lstm_cell": 0, "lstm_sequence": 0,
-                               "flash_attention": zcfg.num_groups,
-                               "ssm_scan": 5 * zcfg.num_groups,
-                               "mlstm_chunk": 0}, card)
+        torch, zcfg, kernels, dict({n: 0 for n in kernels},
+                                   flash_attention=zcfg.num_groups,
+                                   ssm_scan=5 * zcfg.num_groups), card)
     flash_launches, ssm_launches = zl["flash_attention"], zl["ssm_scan"]
     zamba_flash = flash_launches
     # phase 8's trace while the engine is up; freed before phase 6f
@@ -1712,9 +2318,8 @@ def main():
     del zengine, zbatch
     xcfg = get_config("xlstm-350m")
     xengine, xbatch, xl, _ = drive_generate(
-        torch, xcfg, kernels, {"lstm_cell": 0, "lstm_sequence": 0,
-                               "flash_attention": 0, "ssm_scan": 0,
-                               "mlstm_chunk": XLSTM_BLOCKS * xcfg.num_groups},
+        torch, xcfg, kernels, dict({n: 0 for n in kernels},
+                                   mlstm_chunk=XLSTM_BLOCKS * xcfg.num_groups),
         card)
     mlstm_launches = xl["mlstm_chunk"]
     trace_generate(torch, xengine, xbatch, "xlstm-350m", card)
@@ -1731,6 +2336,10 @@ def main():
     # around it alone)
     zoo_launches = drive_llm_zoo(torch, kernels, card)
     flash_launches += sum(zoo_launches.values())
+
+    # 6g. the training paths (each run's counters read around it alone)
+    trained = drive_training(torch, kernels, card)
+    flash_launches += trained["qwen2"]["flash_attention"]
 
     # main-path lstm_sequence launches per (B, I, H): calibrate runs two
     # inferences of CALIBRATE_RECORDS per workload, execution one of
@@ -1971,6 +2580,9 @@ def main():
 
     time_fleet(torch, cuda, card)
 
+    # the backward kernels at the training paths' shapes
+    per_bwd, fbt = time_backward(torch, cuda, card)
+
     # the metro engine's throughput (engine clock, phase 6e's runs): the
     # tabu run of each pack on CUDA, and the default pack's cut runs on
     # CUDA and as torch on the host CPU
@@ -2020,7 +2632,8 @@ def main():
         "source": "src/repro_torch/kernels/csrc/lstm_cell.cu",
         "replaces": "src/repro/kernels/lstm_cell.py:25, scanned by "
                     "src/repro/models/lstm.py:52-58",
-        "launches": launches + sum(n for _, n in fleet_runs.values()),
+        "launches": launches + sum(n for _, n in fleet_runs.values())
+        + trained["icu"]["lstm_sequence"],
         "max_abs_err": seq_err,
         "ms": mean_over_mix(per_seq, "ms"),
         "plain_ms": mean_over_mix(per_seq, "plain_ms"),
@@ -2056,7 +2669,29 @@ def main():
         "bound_ms": max(mt["bytes_ms"], mt["ops_ms"]),
         "bound_by": "bytes" if mt["bytes_ms"] >= mt["ops_ms"]
         else "operations",
-        "library_ms": None}]}))
+        "library_ms": None}, {
+        "name": "lstm_sequence_backward", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/lstm_cell.cu",
+        "replaces": "src/repro/kernels/lstm_cell.py:25, its gradient "
+                    "through the scan of src/repro/models/lstm.py:52-58 "
+                    "(JAX autodiff there; no Pallas backward)",
+        "launches": trained["icu"]["lstm_sequence_backward"],
+        "max_abs_err": lstm_bwd_err,
+        "ms": statistics.mean(t["ms"] for t in per_bwd.values()),
+        "plain_ms": statistics.mean(t["plain_ms"] for t in per_bwd.values()),
+        "bound_ms": statistics.mean(t["bound_ms"] for t in per_bwd.values()),
+        "bound_by": statistics.mode(t["bound_by"] for t in per_bwd.values()),
+        "library_ms": statistics.mean(t["library_ms"]
+                                      for t in per_bwd.values())}, {
+        "name": "flash_attention_backward", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:33, its "
+                    "gradient (JAX autodiff there; no Pallas backward)",
+        "launches": trained["qwen2"]["flash_attention_backward"],
+        "max_abs_err": flash_bwd_err[(QWEN_TRAIN_ATTN, "bfloat16")],
+        "ms": fbt["ms"], "plain_ms": fbt["plain_ms"],
+        "bound_ms": fbt["bound_ms"], "bound_by": fbt["bound_by"],
+        "library_ms": fbt["library_ms"]}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,9 +1,14 @@
-"""Carry parameters of the JAX reference into the port's models.
+"""Carry parameters and optimizer state between the JAX reference and the
+port, as numpy arrays, both ways.
 
 torch cannot replay `jax.random`, so a test that runs both packages on the
 same weights draws or inits them once, turns them into numpy arrays, and
-passes them here. This module takes numpy arrays only and imports nothing
-of the reference.
+passes them here; a trajectory of AdamW steps starts both packages from
+the same state. This module takes and gives numpy arrays only and imports
+nothing of the reference. A bfloat16 tensor leaves as float32 numpy
+(every bf16 value is exact in float32; numpy has no bf16 without
+`ml_dtypes`), which the reference's `jnp.asarray(a, jnp.bfloat16)` takes
+back exactly.
 """
 from __future__ import annotations
 
@@ -11,6 +16,8 @@ from typing import Dict
 
 import numpy as np
 import torch
+
+from repro_torch.training.optimizer import AdamWState, tree_leaves, tree_map
 
 
 def _tensor(a) -> torch.Tensor:
@@ -40,18 +47,12 @@ def _leaf(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a, copy=True))
 
 
-def _tree(tree):
-    if isinstance(tree, dict):
-        return {k: _tree(v) for k, v in tree.items()}
-    return _leaf(tree)
-
-
 def decoder_params_from_numpy(tree, cfg) -> Dict:
     """The reference's `DecoderModel.init` pytree as numpy arrays
     (group leaves stacked on a leading num_groups axis, the shared block
     under stack.shared) as the port's `DecoderModel` parameters: the same
     tree of leaf names, each leaf a CPU tensor of the same dtype."""
-    out = _tree(tree)
+    out = tree_map(_leaf, tree)
     _check_groups(out["stack"]["groups"], cfg.group_pattern, cfg.num_groups)
     return out
 
@@ -63,7 +64,7 @@ def encdec_params_from_numpy(tree, cfg) -> Dict:
     `EncDecModel` parameters: the same tree, each leaf a CPU tensor of the
     same dtype."""
     from repro_torch.models.encdec import DECODER_PATTERN, ENCODER_PATTERN
-    out = _tree(tree)
+    out = tree_map(_leaf, tree)
     _check_groups(out["encoder"]["groups"], ENCODER_PATTERN,
                   cfg.encoder_layers)
     _check_groups(out["decoder"]["groups"], DECODER_PATTERN, cfg.num_layers)
@@ -75,15 +76,47 @@ def _check_groups(groups: Dict, pattern, num_groups: int) -> None:
         key = f"b{i}_{kind}"
         if key not in groups:
             raise ValueError(f"the tree has no group leaf {key!r}")
-        lead = {int(t.shape[0]) for t in _leaves(groups[key])}
+        lead = {int(t.shape[0]) for t in tree_leaves(groups[key])}
         if lead != {num_groups}:
             raise ValueError(f"{key}: leading axes {sorted(lead)} != "
                              f"num_groups {num_groups}")
 
 
-def _leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    else:
-        yield tree
+def tree_to_numpy(tree):
+    """A tree (dicts and lists) of tensors as numpy arrays on the host,
+    bfloat16 as float32."""
+    return tree_map(_to_numpy, tree)
+
+
+def _to_numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    return (t.to(torch.float32) if t.dtype == torch.bfloat16 else t).numpy()
+
+
+def icu_lstm_params_to_numpy(state_dict) -> Dict:
+    """The port's `ICULSTM` state dict as the reference's `ICULSTM.init`
+    pytree of numpy arrays (the inverse of
+    `icu_lstm_params_from_numpy`)."""
+    depth = 1 + max(int(k.split(".")[1]) for k in state_dict
+                    if k.startswith("layers."))
+    return {"layers": [{name: tree_to_numpy(state_dict[f"layers.{i}.{name}"])
+                        for name in ("wx", "wh", "b")}
+                       for i in range(depth)],
+            "head": tree_to_numpy(state_dict["head"]),
+            "head_b": tree_to_numpy(state_dict["head_b"])}
+
+
+def adamw_state_to_numpy(state):
+    """The port's `training.optimizer.AdamWState` as (step, m, v): an int
+    and two numpy trees in the parameters' structure, the reference's
+    `AdamWState` fields."""
+    return int(state.step), tree_to_numpy(state.m), tree_to_numpy(state.v)
+
+
+def adamw_state_from_numpy(step, m, v, device="cpu"):
+    """The reference's `AdamWState` fields (step, m, v) as numpy as the
+    port's `AdamWState`: float32 moments on `device`."""
+    def to_dev(a):
+        return _tensor(a).to(device)
+    return AdamWState(int(np.asarray(step)), tree_map(to_dev, m),
+                      tree_map(to_dev, v))

@@ -4,15 +4,53 @@
 The arrays are drawn with numpy from the seed exactly as the reference
 draws them, then handed to torch on the CPU (the serving engine moves them
 to its device). Tokens are int64, torch's index type; the reference's are
-int32 with the same values. `MarkovTokenDataset` waits for the training
-slice; `shard_batch` has no counterpart on one card.
+int32 with the same values. `shard_batch` has no counterpart on one card.
 """
 from __future__ import annotations
+
+import dataclasses
+from typing import Iterator
 
 import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+
+
+@dataclasses.dataclass
+class MarkovTokenDataset:
+    """Tokens that follow a fixed random bigram table (out-degree
+    `branching`), so a language model's loss drops measurably below the
+    uniform entropy: the reference's dataset, drawn with the same numpy
+    generators from the same seeds, so both packages see the same
+    batches."""
+    vocab_size: int
+    seq_len: int
+    batch_size: int
+    seed: int = 0
+    branching: int = 4          # out-degree of the bigram graph
+
+    def __post_init__(self):
+        rng = np.random.default_rng(self.seed)
+        self.table = rng.integers(0, self.vocab_size,
+                                  size=(self.vocab_size, self.branching))
+
+    def batches(self) -> Iterator[dict]:
+        rng = np.random.default_rng(self.seed + 1)
+        while True:
+            tok = np.empty((self.batch_size, self.seq_len), np.int32)
+            tok[:, 0] = rng.integers(0, self.vocab_size, self.batch_size)
+            choices = rng.integers(0, self.branching,
+                                   (self.batch_size, self.seq_len))
+            for t in range(1, self.seq_len):
+                tok[:, t] = self.table[tok[:, t - 1], choices[:, t]]
+            yield {"tokens": torch.as_tensor(tok, dtype=torch.int64)}
+
+    @property
+    def entropy_floor(self) -> float:
+        """Cross-entropy of the true bigram process (uniform over
+        branches)."""
+        return float(np.log(self.branching))
 
 
 def vision_stub(batch: int, cfg: ModelConfig, seed: int = 0) -> torch.Tensor:

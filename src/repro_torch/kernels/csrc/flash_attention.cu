@@ -65,6 +65,13 @@ namespace {
 constexpr int BQ = 64;  // query rows per block
 constexpr int BK = 64;  // keys per staged tile
 constexpr float NEG_INF = -1e30f;
+// the log-sum-exp written for a row with no live key: the backward's
+// exp(s - lse) is then 0 there, not NaN. Each kernel has an instance
+// that writes it (LSE, the training forward) and one that does not
+// (serving), and takes the pointer last, so that the serving instance's
+// other parameters keep their offsets and its code is the one it was
+// before the training forward existed.
+constexpr float LSE_DEAD = INFINITY;
 
 // ---------------------------------------------------------------------------
 // float32: CUDA cores
@@ -81,13 +88,13 @@ size_t f32_smem_bytes(int d) {
 
 // DC = ceil(D / 16) output columns per thread, a compile-time bound so the
 // accumulator stays in registers.
-template <int DC>
+template <int DC, bool LSE>
 __global__ void __launch_bounds__(F32_THREADS)
     flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, float* __restrict__ o,
                      int Hq, int Hkv, int Lq, int Lk, int D, int causal,
                      int has_window, int window, int has_softcap,
-                     float softcap, float scale) {
+                     float softcap, float scale, float* __restrict__ lse) {
   extern __shared__ float smem[];
   const int ld = D + 1;
   float* qs = smem;            // BQ x ld
@@ -234,44 +241,51 @@ __global__ void __launch_bounds__(F32_THREADS)
       const int col = tx + 16 * c;
       if (col < D) ob[static_cast<long long>(r) * D + col] = acc[i][c] / den;
     }
+    if (LSE && tx == 0)
+      lse[(static_cast<long long>(b) * Hq + h) * Lq + r] =
+          l[i] == 0.f ? LSE_DEAD : m[i] + logf(l[i]);
   }
 }
 
 template <int DC>
-int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
+int launch_f32(const void* q, const void* k, const void* v, void* o,
+               float* lse, int B,
                int Hq, int Hkv, int Lq, int Lk, int D, int causal,
                int has_window, int window, int has_softcap, float softcap,
                float scale, cudaStream_t stream) {
   const size_t smem = f32_smem_bytes(D);
+  const auto kernel = lse != nullptr ? flash_f32_kernel<DC, true>
+                                     : flash_f32_kernel<DC, false>;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_f32_kernel<DC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((Lq + BQ - 1) / BQ, Hq, B);
-  flash_f32_kernel<DC><<<grid, F32_THREADS, smem, stream>>>(
+  kernel<<<grid, F32_THREADS, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), Hq, Hkv, Lq, Lk,
-      D, causal, has_window, window, has_softcap, softcap, scale);
+      D, causal, has_window, window, has_softcap, softcap, scale, lse);
   return static_cast<int>(cudaGetLastError());
 }
 
-int dispatch_f32(const void* q, const void* k, const void* v, void* o, int B,
+int dispatch_f32(const void* q, const void* k, const void* v, void* o,
+                 float* lse, int B,
                  int Hq, int Hkv, int Lq, int Lk, int D, int causal,
                  int has_window, int window, int has_softcap, float softcap,
                  float scale, cudaStream_t s) {
   if (D <= 32)
-    return launch_f32<2>(q, k, v, o, B, Hq, Hkv, Lq, Lk, D, causal,
+    return launch_f32<2>(q, k, v, o, lse, B, Hq, Hkv, Lq, Lk, D, causal,
                          has_window, window, has_softcap, softcap, scale, s);
   if (D <= 64)
-    return launch_f32<4>(q, k, v, o, B, Hq, Hkv, Lq, Lk, D, causal,
+    return launch_f32<4>(q, k, v, o, lse, B, Hq, Hkv, Lq, Lk, D, causal,
                          has_window, window, has_softcap, softcap, scale, s);
   if (D <= 80)
-    return launch_f32<5>(q, k, v, o, B, Hq, Hkv, Lq, Lk, D, causal,
+    return launch_f32<5>(q, k, v, o, lse, B, Hq, Hkv, Lq, Lk, D, causal,
                          has_window, window, has_softcap, softcap, scale, s);
   if (D <= 128)
-    return launch_f32<8>(q, k, v, o, B, Hq, Hkv, Lq, Lk, D, causal,
+    return launch_f32<8>(q, k, v, o, lse, B, Hq, Hkv, Lq, Lk, D, causal,
                          has_window, window, has_softcap, softcap, scale, s);
-  return launch_f32<16>(q, k, v, o, B, Hq, Hkv, Lq, Lk, D, causal,
+  return launch_f32<16>(q, k, v, o, lse, B, Hq, Hkv, Lq, Lk, D, causal,
                         has_window, window, has_softcap, softcap, scale, s);
 }
 
@@ -325,13 +339,14 @@ __device__ __forceinline__ void stage_rows(bf16* dst, const bf16* src,
 }
 
 // DP: D padded with zero columns to a multiple of 16.
-template <int DP>
+template <int DP, bool LSE>
 __global__ void __launch_bounds__(TC_THREADS)
     flash_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                       const bf16* __restrict__ v, bf16* __restrict__ o,
                       int Hq, int Hkv, int Lq, int Lk, int D, int causal,
                       int has_window, int window, int has_softcap,
-                      float softcap, float scale, int vec) {
+                      float softcap, float scale, int vec,
+                      float* __restrict__ lse) {
   constexpr int LD = DP + TC_PAD;
   constexpr int KSTEPS = DP / 16;  // k-steps of q . k
   constexpr int NT = DP / 8;       // 8-column tiles of the output
@@ -556,6 +571,13 @@ __global__ void __launch_bounds__(TC_THREADS)
     l += __shfl_xor_sync(0xffffffffu, l, 1);
     l += __shfl_xor_sync(0xffffffffu, l, 2);
     den[r] = l == 0.f ? 1.f : l;
+    // the row's log-sum-exp of the scaled (softcapped) logits: m_r is in
+    // raw units (times scale) or in log2 units (times ln 2)
+    const int qr = q0 + wrow + g + 8 * r;
+    if (LSE && t4 == 0 && qr < Lq)
+      lse[(static_cast<long long>(b) * Hq + h) * Lq + qr] =
+          l == 0.f ? LSE_DEAD
+                   : m_r[r] * (raw ? scale : 1.f / LOG2E) + logf(l);
   }
   __syncthreads();  // every thread's copies into q's rows have landed
   bf16* os = qs + wrow * LD;
@@ -586,14 +608,17 @@ __global__ void __launch_bounds__(TC_THREADS)
 }
 
 template <int DP>
-int launch_bf16(const void* q, const void* k, const void* v, void* o, int B,
+int launch_bf16(const void* q, const void* k, const void* v, void* o,
+                float* lse, int B,
                 int Hq, int Hkv, int Lq, int Lk, int D, int causal,
                 int has_window, int window, int has_softcap, float softcap,
                 float scale, cudaStream_t stream) {
   constexpr size_t smem =
       sizeof(bf16) * static_cast<size_t>(TC_BQ + 4 * BK) * (DP + TC_PAD);
+  const auto kernel = lse != nullptr ? flash_bf16_kernel<DP, true>
+                                     : flash_bf16_kernel<DP, false>;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bf16_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const auto aligned = [](const void* p) {
@@ -602,21 +627,21 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, int B,
   const int vec = D % 8 == 0 && aligned(q) && aligned(k) && aligned(v) &&
                   aligned(o);
   const dim3 grid(Hq, B, (Lq + TC_BQ - 1) / TC_BQ);
-  flash_bf16_kernel<DP><<<grid, TC_THREADS, smem, stream>>>(
+  kernel<<<grid, TC_THREADS, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(o), Hq, Hkv, Lq, Lk, D,
-      causal, has_window, window, has_softcap, softcap, scale, vec);
+      causal, has_window, window, has_softcap, softcap, scale, vec, lse);
   return static_cast<int>(cudaGetLastError());
 }
 
 // the padded widths instantiated: D goes to the first that holds it
 int dispatch_bf16(const void* q, const void* k, const void* v, void* o,
-                  int B, int Hq, int Hkv, int Lq, int Lk, int D, int causal,
+                  float* lse, int B, int Hq, int Hkv, int Lq, int Lk, int D, int causal,
                   int has_window, int window, int has_softcap, float softcap,
                   float scale, cudaStream_t s) {
 #define REPRO_FLASH_BF16(DP)                                                  \
   if (D <= DP)                                                              \
-    return launch_bf16<DP>(q, k, v, o, B, Hq, Hkv, Lq, Lk, D, causal,       \
+    return launch_bf16<DP>(q, k, v, o, lse, B, Hq, Hkv, Lq, Lk, D, causal,  \
                            has_window, window, has_softcap, softcap, scale, \
                            s);
   REPRO_FLASH_BF16(32)
@@ -634,18 +659,22 @@ int dispatch_bf16(const void* q, const void* k, const void* v, void* o,
 
 // q, o (B, Hq, Lq, D); k, v (B, Hkv, Lk, D); all of one dtype (0 float32,
 // 1 bfloat16), contiguous, on one device; 1 <= D <= 256, Hq % Hkv == 0,
-// any Lq, Lk >= 1. `stream` is a cudaStream_t. Returns a cudaError_t (0 on
-// success).
+// any Lq, Lk >= 1. lse (B, Hq, Lq) float32 or null: each row's log-sum-exp
+// of its scaled (softcapped) live logits, +inf for a row with no live key
+// (the training forward; serving passes null). `stream` is a cudaStream_t.
+// Returns a cudaError_t (0 on success).
 extern "C" int repro_flash_attention(const void* q, const void* k,
-                                     const void* v, void* o, int dtype, int B,
-                                     int Hq, int Hkv, int Lq, int Lk, int D,
-                                     int causal, int has_window, int window,
+                                     const void* v, void* o, void* lse,
+                                     int dtype, int B, int Hq, int Hkv,
+                                     int Lq, int Lk, int D, int causal,
+                                     int has_window, int window,
                                      int has_softcap, float softcap,
                                      float scale, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
   if (dtype == 1)
-    return dispatch_bf16(q, k, v, o, B, Hq, Hkv, Lq, Lk, D, causal,
+    return dispatch_bf16(q, k, v, o, l, B, Hq, Hkv, Lq, Lk, D, causal,
                          has_window, window, has_softcap, softcap, scale, s);
-  return dispatch_f32(q, k, v, o, B, Hq, Hkv, Lq, Lk, D, causal, has_window,
-                      window, has_softcap, softcap, scale, s);
+  return dispatch_f32(q, k, v, o, l, B, Hq, Hkv, Lq, Lk, D, causal,
+                      has_window, window, has_softcap, softcap, scale, s);
 }

@@ -54,12 +54,19 @@
 //   x . wx and h . wh are summed apart and then added, with the bias last,
 //   as the step kernel does.
 //
+// Training: the sequence kernel's TRAIN instances also record every step's
+// activated gates and cell state, and `lstm_sequence_bwd_kernel`
+// (`repro_lstm_sequence_backward`) walks the gradient back through time
+// from them (its design note is beside it). The reference has no backward
+// kernel: its gradient is JAX's autodiff of the scanned cell.
+//
 // Plain C entry points, loaded with ctypes. Each returns cudaGetLastError()
 // after the launch, so a refused launch is reported to the caller.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <algorithm>
 #include <array>
 #include <type_traits>
 #include <utility>
@@ -268,6 +275,20 @@ __device__ __forceinline__ float round_to(float v, const bf16*) {
   return __bfloat162float(__float2bfloat16(v));
 }
 
+// The training forward's record of one step of one hidden unit: the four
+// activated gates of row `bt` = t * B + b (gates (T, B, 4H)) and its cell
+// state before the rounding (cs (T, B, H)).
+__device__ __forceinline__ void save_step(float* gates, float* cs, int bt,
+                                          int H, int j, float ig, float fg,
+                                          float gg, float og, float c) {
+  float* gr = gates + static_cast<long long>(bt) * 4 * H + j;
+  gr[0] = ig;
+  gr[H] = fg;
+  gr[2 * H] = gg;
+  gr[3 * H] = og;
+  cs[static_cast<long long>(bt) * H + j] = c;
+}
+
 // xs (T, B, I); hs (T, B, H) or null; all of type T_ (float or bf16),
 // staged in shared memory as float32. Inputs are read through
 // static_cast<float> in place, with no helper call: so written, the float
@@ -277,7 +298,12 @@ __device__ __forceinline__ float round_to(float v, const bf16*) {
 // column share the input half's passes. TS (a multiple of SEQ_TC) steps a
 // segment. HR: the recurrence's width on one warp (8, 16 or 32, at least
 // H; wh and h zero-padded to it), or 0 for the block-wide recurrence.
-template <int HR, typename T_>
+// TRAIN (the training forward): also write every step's activated gates
+// i, f, g, o to `gates` (T, B, 4H) and its cell state before the rounding
+// to the dtype to `cs` (T, B, H), both float32, for the backward kernel;
+// the serving instances (TRAIN = false) read neither pointer, which come
+// last so that the other parameters keep their offsets.
+template <int HR, typename T_, bool TRAIN>
 __global__ void lstm_sequence_kernel(const T_* __restrict__ xs,
                                      const T_* __restrict__ wx,
                                      const T_* __restrict__ wh,
@@ -285,7 +311,9 @@ __global__ void lstm_sequence_kernel(const T_* __restrict__ xs,
                                      T_* __restrict__ h_out,
                                      T_* __restrict__ c_out,
                                      T_* __restrict__ hs, int T, int B,
-                                     int I, int H, int TS, int stage_wx) {
+                                     int I, int H, int TS, int stage_wx,
+                                     float* __restrict__ gates_out,
+                                     float* __restrict__ cs) {
   constexpr bool F32 = std::is_same<T_, float>::value;
   extern __shared__ __align__(16) float seq_smem[];
   const SeqLayout lay(TS, I, H, stage_wx);
@@ -419,6 +447,9 @@ __global__ void lstm_sequence_kernel(const T_* __restrict__ xs,
             const float gg = tanh_sfu(pre[2] + a[2] + bias[2]);
             const float og = sigmoid_sfu(pre[3] + a[3] + bias[3]);
             c = fg * c + ig * gg;
+            if constexpr (TRAIN)
+              save_step(gates_out, cs, (s0 + t) * B + row, H, tid, ig, fg, gg,
+                        og, c);
             h = round_to(og * tanh_sfu(c), xs);
             c = round_to(c, xs);
             hsh[tid] = h;
@@ -470,6 +501,9 @@ __global__ void lstm_sequence_kernel(const T_* __restrict__ xs,
           const float gg = tanh_sfu(gates[2 * H + tid]);
           const float og = sigmoid_sfu(gates[3 * H + tid]);
           c = fg * c + ig * gg;
+          if constexpr (TRAIN)
+            save_step(gates_out, cs, (s0 + t) * B + row, H, tid, ig, fg, gg,
+                      og, c);
           h = round_to(og * tanh_sfu(c), xs);
           c = round_to(c, xs);
           hsh[tid] = h;
@@ -488,15 +522,16 @@ __global__ void lstm_sequence_kernel(const T_* __restrict__ xs,
   }
 }
 
-template <typename T_>
+template <typename T_, bool TRAIN>
 int launch_sequence(const void* xs, const void* wx, const void* wh,
-                    const void* b, void* h_out, void* c_out, void* hs, int T,
-                    int B, int I, int H, int ts, bool stage_wx, size_t smem,
-                    int threads, cudaStream_t stream) {
-  const auto kernel = H <= 8    ? lstm_sequence_kernel<8, T_>
-                      : H <= 16 ? lstm_sequence_kernel<16, T_>
-                      : H <= 32 ? lstm_sequence_kernel<32, T_>
-                                : lstm_sequence_kernel<0, T_>;
+                    const void* b, void* h_out, void* c_out, void* hs,
+                    float* gates, float* cs, int T, int B, int I, int H,
+                    int ts, bool stage_wx, size_t smem, int threads,
+                    cudaStream_t stream) {
+  const auto kernel = H <= 8    ? lstm_sequence_kernel<8, T_, TRAIN>
+                      : H <= 16 ? lstm_sequence_kernel<16, T_, TRAIN>
+                      : H <= 32 ? lstm_sequence_kernel<32, T_, TRAIN>
+                                : lstm_sequence_kernel<0, T_, TRAIN>;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -507,7 +542,7 @@ int launch_sequence(const void* xs, const void* wx, const void* wh,
       static_cast<const T_*>(xs), static_cast<const T_*>(wx),
       static_cast<const T_*>(wh), static_cast<const T_*>(b),
       static_cast<T_*>(h_out), static_cast<T_*>(c_out), static_cast<T_*>(hs),
-      T, B, I, H, ts, stage_wx);
+      T, B, I, H, ts, stage_wx, gates, cs);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -516,13 +551,17 @@ int launch_sequence(const void* xs, const void* wx, const void* wh,
 // xs (T, B, I); wx (I, 4, H); wh (H, 4, H); b (4, H); h_out, c_out (B, H);
 // hs (T, B, H) or null; all float32 (bf16 = 0) or all bfloat16 (bf16 = 1),
 // contiguous, on one device; T, B >= 1, 1 <= H <= 256, and a segment of
-// SEQ_TC steps within SEQ_SMEM_CAP. `stream` is a cudaStream_t. Returns a
-// cudaError_t (0 on success).
+// SEQ_TC steps within SEQ_SMEM_CAP. gates (T, B, 4H) and cs (T, B, H),
+// float32, both null (serving) or both given with hs (the training
+// forward, which records what `repro_lstm_sequence_backward` reads).
+// `stream` is a cudaStream_t. Returns a cudaError_t (0 on success).
 extern "C" int repro_lstm_sequence(const void* xs, const void* wx,
                                    const void* wh, const void* b, void* h_out,
-                                   void* c_out, void* hs, int T, int B, int I,
-                                   int H, int bf16_inputs, void* stream) {
-  if (H < 1 || 4 * H > 1024 || T < 1)
+                                   void* c_out, void* hs, void* gates,
+                                   void* cs, int T, int B, int I, int H,
+                                   int bf16_inputs, void* stream) {
+  if (H < 1 || 4 * H > 1024 || T < 1 || (gates == nullptr) != (cs == nullptr)
+      || (gates != nullptr && hs == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const auto bytes = [&](int ts, bool stage) {
     return SeqLayout(ts, I, H, stage).total * sizeof(float);
@@ -540,9 +579,162 @@ extern "C" int repro_lstm_sequence(const void* xs, const void* wx,
   const int g32 = (4 * H + 31) / 32 * 32;
   const int threads = g32 * (g32 < 256 ? 256 / g32 : 1);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* g = static_cast<float*>(gates);
+  float* c = static_cast<float*>(cs);
   if (bf16_inputs)
-    return launch_sequence<bf16>(xs, wx, wh, b, h_out, c_out, hs, T, B, I, H,
-                                 ts, stage_wx, smem, threads, s);
-  return launch_sequence<float>(xs, wx, wh, b, h_out, c_out, hs, T, B, I, H,
-                                ts, stage_wx, smem, threads, s);
+    return g ? launch_sequence<bf16, true>(xs, wx, wh, b, h_out, c_out, hs, g,
+                                           c, T, B, I, H, ts, stage_wx, smem,
+                                           threads, s)
+             : launch_sequence<bf16, false>(xs, wx, wh, b, h_out, c_out, hs,
+                                            g, c, T, B, I, H, ts, stage_wx,
+                                            smem, threads, s);
+  return g ? launch_sequence<float, true>(xs, wx, wh, b, h_out, c_out, hs, g,
+                                          c, T, B, I, H, ts, stage_wx, smem,
+                                          threads, s)
+           : launch_sequence<float, false>(xs, wx, wh, b, h_out, c_out, hs, g,
+                                           c, T, B, I, H, ts, stage_wx, smem,
+                                           threads, s);
+}
+
+namespace {
+
+// The backward through time of one layer (`repro_lstm_sequence_backward`):
+// the serial chain of the gradient, t = T-1 ... 0, from what the training
+// forward recorded. Per step and hidden unit j, with dh = dhs_t + dh_next
+// (+ dh_T at the last step) and dc carried (dc_T at the last step),
+//   tc = tanh(c_t),   dc += dh o (1 - tc^2),
+//   dI = dc g i (1 - i),   dF = dc c_{t-1} f (1 - f),
+//   dG = dc i (1 - g^2),   dO = dh tc o (1 - o),   dc <- dc f,
+// where c_t is the state before the rounding to the dtype (what tanh read)
+// and c_{t-1} the rounded state the forward carried; then the chain's
+// product dh_next = dGates_t . wh^T (the 4H pre-activation gradients
+// against wh's row of each hidden unit). The products off the chain (the
+// weights' gradients, dxs) are matrix products over all T x B rows, left to
+// the caller.
+//
+// What bounds it: like the forward, T dependent steps; at the ICU shapes a
+// step moves under 10 KB and its products are a few kFLOP, so the chain's
+// latency is what is left. One block per batch row; H threads do a step's
+// gate math, then the dot over 4H of every hidden unit is spread over all
+// warps, one hidden unit a warp at a time, lanes striding wh's row (read
+// through L1/L2, coalesced; up to 1 MiB at H = 256) and a shuffle sum; the
+// next step's recorded gates and states are loaded before the barrier, so
+// their latency is off the chain.
+template <typename T_>
+__global__ void lstm_sequence_bwd_kernel(const T_* __restrict__ wh,
+                                         const float* __restrict__ gates,
+                                         const float* __restrict__ cs,
+                                         const T_* __restrict__ dhs,
+                                         const T_* __restrict__ dh_last,
+                                         const T_* __restrict__ dc_last,
+                                         float* __restrict__ dgates, int T,
+                                         int B, int H) {
+  extern __shared__ float bwd_smem[];
+  float* dgs = bwd_smem;           // the step's 4H gate gradients
+  float* dhn = bwd_smem + 4 * H;   // dh_next (H)
+  const int row = blockIdx.x, tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5, warps = blockDim.x >> 5;
+  const int G = 4 * H;
+  float dc = 0.f;
+  // this thread's inputs of step t (unit tid)
+  float ig = 0.f, fg = 0.f, gg = 0.f, og = 0.f, c = 0.f, cp = 0.f, up = 0.f;
+  const auto load = [&](int t) {
+    const long long bt = static_cast<long long>(t) * B + row;
+    const float* gr = gates + bt * G + tid;
+    ig = gr[0];
+    fg = gr[H];
+    gg = gr[2 * H];
+    og = gr[3 * H];
+    c = cs[bt * H + tid];
+    cp = t > 0 ? round_to(cs[(bt - B) * H + tid], wh) : 0.f;
+    up = dhs != nullptr ? static_cast<float>(dhs[bt * H + tid]) : 0.f;
+  };
+  if (tid < H) {
+    const long long o = static_cast<long long>(row) * H + tid;
+    dc = dc_last != nullptr ? static_cast<float>(dc_last[o]) : 0.f;
+    dhn[tid] = dh_last != nullptr ? static_cast<float>(dh_last[o]) : 0.f;
+    load(T - 1);
+  }
+  __syncthreads();
+  for (int t = T - 1; t >= 0; --t) {
+    if (tid < H) {
+      const float dh = dhn[tid] + up;
+      const float tc = tanhf(c);
+      dc = fmaf(dh * og, 1.f - tc * tc, dc);
+      const float di = dc * gg * ig * (1.f - ig);
+      const float df = dc * cp * fg * (1.f - fg);
+      const float dg = dc * ig * (1.f - gg * gg);
+      const float dout = dh * tc * og * (1.f - og);
+      dc *= fg;
+      dgs[tid] = di;
+      dgs[H + tid] = df;
+      dgs[2 * H + tid] = dg;
+      dgs[3 * H + tid] = dout;
+      float* dr = dgates + (static_cast<long long>(t) * B + row) * G + tid;
+      dr[0] = di;
+      dr[H] = df;
+      dr[2 * H] = dg;
+      dr[3 * H] = dout;
+      if (t > 0) load(t - 1);
+    }
+    __syncthreads();  // the step's gate gradients are whole
+    if (t > 0) {
+      for (int k = warp; k < H; k += warps) {
+        const T_* wr = wh + static_cast<long long>(k) * G;
+        float a0 = 0.f, a1 = 0.f;
+        int n = lane;
+        for (; n + 32 < G; n += 64) {
+          a0 = fmaf(dgs[n], static_cast<float>(wr[n]), a0);
+          a1 = fmaf(dgs[n + 32], static_cast<float>(wr[n + 32]), a1);
+        }
+        if (n < G) a0 = fmaf(dgs[n], static_cast<float>(wr[n]), a0);
+        float a = a0 + a1;
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1)
+          a += __shfl_xor_sync(0xffffffffu, a, off);
+        if (lane == 0) dhn[k] = a;
+      }
+    }
+    __syncthreads();  // dh_next is whole; the gate gradients are read
+  }
+}
+
+template <typename T_>
+int launch_sequence_bwd(const void* wh, const float* gates, const float* cs,
+                        const void* dhs, const void* dh_last,
+                        const void* dc_last, float* dgates, int T, int B,
+                        int H, cudaStream_t stream) {
+  const int threads = std::max(32, (4 * H + 31) / 32 * 32);
+  const size_t smem = sizeof(float) * 5 * static_cast<size_t>(H);
+  lstm_sequence_bwd_kernel<T_><<<B, threads, smem, stream>>>(
+      static_cast<const T_*>(wh), gates, cs, static_cast<const T_*>(dhs),
+      static_cast<const T_*>(dh_last), static_cast<const T_*>(dc_last),
+      dgates, T, B, H);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// wh (H, 4, H) and the upstream gradients dhs (T, B, H), dh_last and
+// dc_last (B, H), each of which may be null (a zero gradient), all float32
+// (bf16 = 0) or all bfloat16 (bf16 = 1); gates (T, B, 4H) and cs (T, B, H)
+// as `repro_lstm_sequence`'s training forward wrote them; dgates (T, B, 4H)
+// float32, the gradient of every step's pre-activation gates i, f, g, o.
+// Contiguous, on one device; T, B >= 1, 1 <= H <= 256. Returns a
+// cudaError_t (0 on success).
+extern "C" int repro_lstm_sequence_backward(
+    const void* wh, const void* gates, const void* cs, const void* dhs,
+    const void* dh_last, const void* dc_last, void* dgates, int T, int B,
+    int H, int bf16_inputs, void* stream) {
+  if (H < 1 || 4 * H > 1024 || T < 1 || B < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* g = static_cast<const float*>(gates);
+  const float* c = static_cast<const float*>(cs);
+  float* dg = static_cast<float*>(dgates);
+  if (bf16_inputs)
+    return launch_sequence_bwd<bf16>(wh, g, c, dhs, dh_last, dc_last, dg, T,
+                                     B, H, s);
+  return launch_sequence_bwd<float>(wh, g, c, dhs, dh_last, dc_last, dg, T,
+                                    B, H, s);
 }

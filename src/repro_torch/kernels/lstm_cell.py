@@ -14,9 +14,22 @@ h' and c' in h's and c's; `lstm_sequence` takes one dtype for all its
 inputs and returns h and c in it (rounded to it after every step, as a
 scan of the cell carries them).
 
+Training: on the card, `lstm_sequence` under autograd is a
+`torch.autograd.Function`. Its forward launches the training instance of
+the sequence kernel, which also records every step's activated gates and
+cell state (float32); its backward is `lstm_sequence_backward`, a
+hand-written kernel for the serial chain back through time, then matrix
+products over all T·B rows for the weights' gradients and dxs (which the
+reference's autodiff also computes outside its kernel). Its plain
+version, `lstm_sequence_backward_plain`, is written from the formulas.
+The one-step `lstm_cell` is on no training path and raises under grad on
+the card rather than return a tensor autograd cannot see.
+
 Each wrapper takes its kernel for CUDA tensors and its plain PyTorch
-version for CPU tensors; on the card it launches the kernel or raises. It
-counts its launches in `lstm_cell.launches` / `lstm_sequence.launches`.
+version for CPU tensors (where autograd differentiates the plain scan);
+on the card it launches the kernel or raises. They count their launches
+in `lstm_cell.launches`, `lstm_sequence.launches` (forward, serving and
+training) and `lstm_sequence_backward.launches`.
 """
 from __future__ import annotations
 
@@ -63,7 +76,7 @@ def _check_weights(i_dim, h_dim, wx, wh, b) -> None:
         raise ValueError(f"wx shape {tuple(wx.shape)} != {(i_dim, 4, h_dim)}")
     if wh.shape != (h_dim, 4, h_dim):
         raise ValueError(f"wh shape {tuple(wh.shape)} != {(h_dim, 4, h_dim)}")
-    if b.shape != (4, h_dim):
+    if b is not None and b.shape != (4, h_dim):
         raise ValueError(f"b shape {tuple(b.shape)} != {(4, h_dim)}")
 
 
@@ -108,21 +121,45 @@ def _entry():
 
 
 def _check_sequence(xs, wx, wh, b) -> None:
-    for name, t, nd in (("xs", xs, 3), ("wx", wx, 3), ("wh", wh, 3),
-                        ("b", b, 2)):
+    """b None: the backward, which takes no bias."""
+    named = [("xs", xs, 3), ("wx", wx, 3), ("wh", wh, 3)]
+    if b is not None:
+        named.append(("b", b, 2))
+    for name, t, nd in named:
         if t.dim() != nd:
             raise ValueError(f"{name} must have {nd} dims, got {t.dim()}")
     _check_weights(xs.shape[2], wh.shape[0], wx, wh, b)
-    _check_tensors("lstm_sequence", (xs, wx, wh, b), one_dtype=True)
+    _check_tensors("lstm_sequence", [t for _, t, _ in named], one_dtype=True)
 
 
 @functools.lru_cache(maxsize=None)
 def _sequence_entry():
     fn = build.load("lstm_cell").repro_lstm_sequence
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 \
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 \
         + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _backward_entry():
+    fn = build.load("lstm_cell").repro_lstm_sequence_backward
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 \
+        + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _check_card(op: str, t: torch.Tensor) -> None:
+    if t.device.type != "cuda":
+        raise ValueError(f"{op} runs on cuda or cpu, not {t.device}")
+    if t.device.index != torch.cuda.current_device():
+        raise ValueError(f"{op} inputs lie on {t.device}, but the current "
+                         f"device is cuda:{torch.cuda.current_device()}")
+
+
+def _wants_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
 def lstm_cell(x: torch.Tensor, h: torch.Tensor, c: torch.Tensor,
@@ -136,12 +173,13 @@ def lstm_cell(x: torch.Tensor, h: torch.Tensor, c: torch.Tensor,
     _check(x, h, c, wx, wh, b)
     if x.device.type == "cpu":
         return lstm_cell_plain(x, h, c, wx, wh, b)
-    if x.device.type != "cuda":
-        raise ValueError(f"lstm_cell runs on cuda or cpu, not {x.device}")
-    if x.device.index != torch.cuda.current_device():
-        raise ValueError(f"lstm_cell inputs lie on {x.device}, but the "
-                         f"current device is cuda:"
-                         f"{torch.cuda.current_device()}")
+    _check_card("lstm_cell", x)
+    if _wants_grad(x, h, c, wx, wh, b):
+        raise NotImplementedError(
+            "lstm_cell has no backward kernel: the one-step kernel is on no "
+            "training path (ICULSTM trains through lstm_sequence, whose "
+            "backward is lstm_sequence_backward); its backward is ROADMAP "
+            "queue 2 item 1")
     bsz, i_dim = x.shape
     h_dim = h.shape[1]
     if (i_dim + h_dim) * 4 > _MAX_SMEM_BYTES:
@@ -168,28 +206,12 @@ def lstm_cell(x: torch.Tensor, h: torch.Tensor, c: torch.Tensor,
 lstm_cell.launches = 0
 
 
-def lstm_sequence(xs: torch.Tensor, wx: torch.Tensor, wh: torch.Tensor,
-                  b: torch.Tensor, *, return_sequence: bool = False
-                  ) -> tuple[torch.Tensor, torch.Tensor,
-                             torch.Tensor | None]:
-    """xs: (T, B, I); wx: (I, 4, H); wh: (H, 4, H); b: (4, H).
-
-    T steps of `lstm_cell` from h = c = 0, gate order i, f, g, o; the
-    inputs all float32 or all bfloat16, float32 math, h and c carried in
-    the inputs' dtype. Returns (h_T, c_T, hs): hs is the (T, B, H) hidden
-    sequence when `return_sequence`, else None. On the card: one launch, on the current
-    CUDA stream, no synchronise."""
-    _check_sequence(xs, wx, wh, b)
-    if xs.device.type == "cpu":
-        return lstm_sequence_plain(xs, wx, wh, b,
-                                   return_sequence=return_sequence)
-    if xs.device.type != "cuda":
-        raise ValueError(f"lstm_sequence runs on cuda or cpu, not "
-                         f"{xs.device}")
-    if xs.device.index != torch.cuda.current_device():
-        raise ValueError(f"lstm_sequence inputs lie on {xs.device}, but the "
-                         f"current device is cuda:"
-                         f"{torch.cuda.current_device()}")
+def _sequence_launch(xs, wx, wh, b, *, return_sequence: bool,
+                     train: bool):
+    """One launch of the sequence kernel. Returns (h_T, c_T, hs or None,
+    gates, cs); with `train`, hs always and the training record gates
+    (T, B, 4H) and cs (T, B, H), float32, else None for both."""
+    _check_card("lstm_sequence", xs)
     t_len, bsz, i_dim = xs.shape
     h_dim = wh.shape[0]
     if h_dim > MAX_SEQUENCE_HIDDEN:
@@ -201,22 +223,228 @@ def lstm_sequence(xs: torch.Tensor, wx: torch.Tensor, wh: torch.Tensor,
             > _SEQ_SMEM_CAP:
         raise ValueError(f"a segment of {_SEQ_TC} steps at I = {i_dim}, "
                          f"H = {h_dim} exceeds a block's shared memory")
-    hs = xs.new_empty((t_len, bsz, h_dim)) if return_sequence else None
+    hs = xs.new_empty((t_len, bsz, h_dim)) \
+        if return_sequence or train else None
+    gates = cs = None
+    if train:
+        gates = xs.new_empty((t_len, bsz, 4 * h_dim), dtype=torch.float32)
+        cs = xs.new_empty((t_len, bsz, h_dim), dtype=torch.float32)
     if t_len == 0 or bsz == 0 or h_dim == 0:
-        return (xs.new_zeros((bsz, h_dim)), xs.new_zeros((bsz, h_dim)), hs)
+        return (xs.new_zeros((bsz, h_dim)), xs.new_zeros((bsz, h_dim)), hs,
+                gates, cs)
     h_out = xs.new_empty((bsz, h_dim))
     c_out = xs.new_empty((bsz, h_dim))
     stream = torch.cuda.current_stream(xs.device).cuda_stream
+    ptr = (lambda t: None if t is None else t.data_ptr())
     err = _sequence_entry()(xs.data_ptr(), wx.data_ptr(), wh.data_ptr(),
                             b.data_ptr(), h_out.data_ptr(), c_out.data_ptr(),
-                            None if hs is None else hs.data_ptr(),
-                            t_len, bsz, i_dim, h_dim,
-                            int(xs.dtype == torch.bfloat16), stream)
+                            ptr(hs), ptr(gates), ptr(cs), t_len, bsz, i_dim,
+                            h_dim, int(xs.dtype == torch.bfloat16), stream)
     if err:
         raise RuntimeError(f"lstm_sequence kernel launch failed: CUDA error "
                            f"{err}")
     lstm_sequence.launches += 1
-    return h_out, c_out, hs
+    return h_out, c_out, hs, gates, cs
+
+
+class _LSTMSequence(torch.autograd.Function):
+    """The sequence kernel under autograd: the forward launches its
+    training instance, the backward `lstm_sequence_backward`."""
+
+    @staticmethod
+    def forward(ctx, xs, wx, wh, b):
+        h, c, hs, gates, cs = _sequence_launch(xs, wx, wh, b,
+                                               return_sequence=True,
+                                               train=True)
+        ctx.save_for_backward(xs, wx, wh, hs, gates, cs)
+        return h, c, hs
+
+    @staticmethod
+    def backward(ctx, dh, dc, dhs):
+        xs, wx, wh, hs, gates, cs = ctx.saved_tensors
+        return lstm_sequence_backward(xs, wx, wh, hs, gates, cs, dh, dc, dhs)
+
+
+def lstm_sequence(xs: torch.Tensor, wx: torch.Tensor, wh: torch.Tensor,
+                  b: torch.Tensor, *, return_sequence: bool = False
+                  ) -> tuple[torch.Tensor, torch.Tensor,
+                             torch.Tensor | None]:
+    """xs: (T, B, I); wx: (I, 4, H); wh: (H, 4, H); b: (4, H).
+
+    T steps of `lstm_cell` from h = c = 0, gate order i, f, g, o; the
+    inputs all float32 or all bfloat16, float32 math, h and c carried in
+    the inputs' dtype. Returns (h_T, c_T, hs): hs is the (T, B, H) hidden
+    sequence when `return_sequence`, else None. On the card: one launch,
+    on the current CUDA stream, no synchronise; with grad enabled and an
+    input that requires it, the launch is the training forward and the
+    backward is `lstm_sequence_backward`."""
+    _check_sequence(xs, wx, wh, b)
+    if xs.device.type == "cpu":
+        return lstm_sequence_plain(xs, wx, wh, b,
+                                   return_sequence=return_sequence)
+    if _wants_grad(xs, wx, wh, b):
+        _check_card("lstm_sequence", xs)
+        h, c, hs = _LSTMSequence.apply(xs, wx, wh, b)
+        return h, c, hs if return_sequence else None
+    return _sequence_launch(xs, wx, wh, b, return_sequence=return_sequence,
+                            train=False)[:3]
 
 
 lstm_sequence.launches = 0
+
+
+def lstm_sequence_train_plain(xs, wx, wh, b):
+    """The training forward in plain PyTorch: `lstm_sequence_plain`'s scan
+    that also returns the record the backward reads. Returns (h_T, c_T,
+    hs, gates (T, B, 4H) the activated i, f, g, o, cs (T, B, H) each
+    step's cell state before the rounding to the dtype), gates and cs
+    float32."""
+    f32 = torch.float32
+    t_len, bsz, _ = xs.shape
+    i_dim, _, h_dim = wx.shape
+    wxf = wx.to(f32).reshape(i_dim, 4 * h_dim)
+    whf = wh.to(f32).reshape(h_dim, 4 * h_dim)
+    bf = b.to(f32).reshape(4 * h_dim)
+    h = c = xs.new_zeros((bsz, h_dim))
+    hs, gates, cs = [], [], []
+    for xt in xs:
+        pre = xt.to(f32) @ wxf + h.to(f32) @ whf + bf
+        i, f, g, o = torch.chunk(pre, 4, dim=-1)
+        i, f, g, o = (torch.sigmoid(i), torch.sigmoid(f), torch.tanh(g),
+                      torch.sigmoid(o))
+        c_new = f * c.to(f32) + i * g
+        h = (o * torch.tanh(c_new)).to(xs.dtype)
+        c = c_new.to(xs.dtype)
+        hs.append(h)
+        gates.append(torch.cat([i, f, g, o], dim=-1))
+        cs.append(c_new)
+    if not hs:
+        return (h, c, xs.new_zeros((0, bsz, h_dim)),
+                xs.new_zeros((0, bsz, 4 * h_dim), dtype=f32),
+                xs.new_zeros((0, bsz, h_dim), dtype=f32))
+    return h, c, torch.stack(hs), torch.stack(gates), torch.stack(cs)
+
+
+def lstm_sequence_train(xs, wx, wh, b):
+    """The training forward: `lstm_sequence` with `return_sequence` that
+    also returns the record the backward reads, (h_T, c_T, hs, gates, cs)
+    as `lstm_sequence_train_plain` gives them. One launch of the kernel on
+    the card (counted in `lstm_sequence.launches`), the plain version on
+    the CPU; no autograd."""
+    _check_sequence(xs, wx, wh, b)
+    if xs.device.type == "cpu":
+        return lstm_sequence_train_plain(xs, wx, wh, b)
+    return _sequence_launch(xs, wx, wh, b, return_sequence=True, train=True)
+
+
+def _products(xs, wx, hs, dgates):
+    """The products off the chain, from the pre-activation gate gradients
+    dgates (T, B, 4H) float32: dxs = dG wx^T, dwx = sum_t x_t^T dG_t,
+    dwh = sum_t h_{t-1}^T dG_t (h_{-1} = 0), db = sum_t dG_t; float32
+    matrix products over the T B rows, in the inputs' dtypes."""
+    f32 = torch.float32
+    t_len, bsz, i_dim = xs.shape
+    h_dim = hs.shape[2]
+    dg = dgates.reshape(t_len * bsz, 4 * h_dim)
+    dxs = (dg @ wx.to(f32).reshape(i_dim, 4 * h_dim).t()).reshape(xs.shape)
+    dwx = xs.reshape(-1, i_dim).to(f32).t() @ dg
+    h_prev = torch.cat([hs.new_zeros((1, bsz, h_dim)), hs[:-1]])
+    dwh = h_prev.reshape(-1, h_dim).to(f32).t() @ dg
+    db = dg.sum(0)
+    return (dxs.to(xs.dtype), dwx.reshape(i_dim, 4, h_dim).to(wx.dtype),
+            dwh.reshape(h_dim, 4, h_dim).to(wx.dtype),
+            db.reshape(4, h_dim).to(wx.dtype))
+
+
+def lstm_sequence_backward_plain(xs, wx, wh, hs, gates, cs, dh=None,
+                                 dc=None, dhs=None):
+    """The backward kernel's function in plain PyTorch, written from the
+    formulas (csrc/lstm_cell.cu, `lstm_sequence_bwd_kernel`): the chain
+    t = T-1 ... 0 over the training forward's record, then `_products`.
+    dh, dc (B, H) and dhs (T, B, H) are the upstream gradients of h_T, c_T
+    and hs (None: zero). float32 math; returns (dxs, dwx, dwh, db) in the
+    inputs' dtypes."""
+    f32 = torch.float32
+    t_len, bsz, _ = xs.shape
+    h_dim = wh.shape[0]
+    whf = wh.to(f32).reshape(h_dim, 4 * h_dim)
+    zero = xs.new_zeros((bsz, h_dim), dtype=f32)
+    dh_next = zero if dh is None else dh.to(f32)
+    dcar = zero if dc is None else dc.to(f32)
+    dgates = torch.empty_like(gates)
+    for t in range(t_len - 1, -1, -1):
+        i, f, g, o = torch.chunk(gates[t], 4, dim=-1)
+        c_prev = cs[t - 1].to(xs.dtype).to(f32) if t > 0 else zero
+        up = zero if dhs is None else dhs[t].to(f32)
+        d_h = dh_next + up
+        tc = torch.tanh(cs[t])
+        dcar = dcar + d_h * o * (1.0 - tc * tc)
+        dg = torch.cat([dcar * g * i * (1.0 - i),
+                        dcar * c_prev * f * (1.0 - f),
+                        dcar * i * (1.0 - g * g),
+                        d_h * tc * o * (1.0 - o)], dim=-1)
+        dcar = dcar * f
+        dgates[t] = dg
+        dh_next = dg @ whf.t()
+    return _products(xs, wx, hs, dgates)
+
+
+def lstm_sequence_backward(xs: torch.Tensor, wx: torch.Tensor,
+                           wh: torch.Tensor, hs: torch.Tensor,
+                           gates: torch.Tensor, cs: torch.Tensor,
+                           dh: torch.Tensor | None = None,
+                           dc: torch.Tensor | None = None,
+                           dhs: torch.Tensor | None = None):
+    """The gradient of `lstm_sequence` at (xs, wx, wh, b), from the
+    training forward's record (hs, gates, cs as `lstm_sequence_train`
+    gives them) and the upstream gradients dh, dc (B, H) of h_T and c_T
+    and dhs (T, B, H) of hs, each None for zero. Returns (dxs, dwx, dwh,
+    db) in the inputs' dtypes. On the card: one launch of the kernel for
+    the chain over t (the gate gradients), counted in
+    `lstm_sequence_backward.launches`, then `_products`' matrix products;
+    on the CPU, `lstm_sequence_backward_plain`."""
+    _check_sequence(xs, wx, wh, None)
+    t_len, bsz, _ = xs.shape
+    h_dim = wh.shape[0]
+    upstream = {"dh": (dh, (bsz, h_dim)), "dc": (dc, (bsz, h_dim)),
+                "dhs": (dhs, (t_len, bsz, h_dim))}
+    ups = {}
+    for name, (t, shape) in upstream.items():
+        if t is not None:
+            if t.shape != shape or t.device != xs.device:
+                raise ValueError(f"{name} must be {shape} on {xs.device}")
+            t = t.to(xs.dtype).contiguous()
+        ups[name] = t
+    if xs.device.type == "cpu":
+        return lstm_sequence_backward_plain(xs, wx, wh, hs, gates, cs,
+                                            **ups)
+    _check_card("lstm_sequence_backward", xs)
+    for name, t, shape in (("hs", hs, (t_len, bsz, h_dim)),
+                           ("gates", gates, (t_len, bsz, 4 * h_dim)),
+                           ("cs", cs, (t_len, bsz, h_dim))):
+        if t.shape != shape or t.device != xs.device \
+                or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous {shape} on "
+                             f"{xs.device}")
+    if gates.dtype != torch.float32 or cs.dtype != torch.float32:
+        raise TypeError("gates and cs must be float32")
+    if h_dim > MAX_SEQUENCE_HIDDEN:
+        raise ValueError(f"hidden size {h_dim} exceeds the backward "
+                         f"kernel's {MAX_SEQUENCE_HIDDEN}")
+    dgates = torch.empty_like(gates)
+    if gates.numel() == 0:
+        return _products(xs, wx, hs, dgates)
+    stream = torch.cuda.current_stream(xs.device).cuda_stream
+    ptr = (lambda t: None if t is None else t.data_ptr())
+    err = _backward_entry()(wh.data_ptr(), gates.data_ptr(), cs.data_ptr(),
+                            ptr(ups["dhs"]), ptr(ups["dh"]), ptr(ups["dc"]),
+                            dgates.data_ptr(), t_len, bsz, h_dim,
+                            int(xs.dtype == torch.bfloat16), stream)
+    if err:
+        raise RuntimeError(f"lstm_sequence_backward kernel launch failed: "
+                           f"CUDA error {err}")
+    lstm_sequence_backward.launches += 1
+    return _products(xs, wx, hs, dgates)
+
+
+lstm_sequence_backward.launches = 0

@@ -13,7 +13,10 @@ accepted for the signature and not used.
 
 `mlstm_chunk` takes the kernel for CUDA tensors and the plain PyTorch
 version for CPU tensors; on the card it launches the kernel or raises. It
-counts its launches in `mlstm_chunk.launches`.
+has no backward kernel yet: on a CUDA tensor with grad enabled and an
+input that requires grad it raises NotImplementedError rather than return
+a tensor autograd cannot see (on the CPU autograd differentiates the
+plain version). It counts its launches in `mlstm_chunk.launches`.
 """
 from __future__ import annotations
 
@@ -93,6 +96,12 @@ def mlstm_chunk(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"mlstm_chunk inputs lie on {q.device}, but the "
                          f"current device is cuda:"
                          f"{torch.cuda.current_device()}")
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (q, k, v, i_gate, f_gate)):
+        raise NotImplementedError(
+            "mlstm_chunk has no backward kernel yet (ROADMAP queue 2 item 4, "
+            "its backward): on the card xlstm's mLSTM blocks run under "
+            "torch.no_grad() only; train them on the CPU")
     bsz, l, h, d = q.shape
     f32 = torch.float32
     y = torch.empty_like(q)

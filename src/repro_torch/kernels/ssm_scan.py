@@ -10,9 +10,12 @@ chunks of 64 steps; float32 inputs take the recurrence step by step on
 the CUDA cores. Both take any L, H and P, so `chunk` and `block_h` are
 accepted for the signature and not used.
 
-`ssm_scan` takes the kernel for CUDA tensors and the plain PyTorch version
-for CPU tensors; on the card it launches the kernel or raises. It counts
-its launches in `ssm_scan.launches`.
+`ssm_scan` takes the kernel for CUDA tensors and the plain PyTorch
+version for CPU tensors; on the card it launches the kernel or raises. It
+has no backward kernel yet: on a CUDA tensor with grad enabled and an
+input that requires grad it raises NotImplementedError rather than return
+a tensor autograd cannot see (on the CPU autograd differentiates the
+plain version). It counts its launches in `ssm_scan.launches`.
 """
 from __future__ import annotations
 
@@ -89,6 +92,12 @@ def ssm_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
         raise ValueError(f"ssm_scan inputs lie on {x.device}, but the "
                          f"current device is cuda:"
                          f"{torch.cuda.current_device()}")
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, dt, a, b, c, d)):
+        raise NotImplementedError(
+            "ssm_scan has no backward kernel yet (ROADMAP queue 2 item 3, "
+            "its backward): on the card zamba2's Mamba2 blocks run under "
+            "torch.no_grad() only; train them on the CPU")
     bsz, l, h, p = x.shape
     n = b.shape[-1]
     if n > MAX_STATE_DIM:

@@ -1,0 +1,206 @@
+"""Training launcher, as the reference's (src/repro/launch/train.py), and
+the paper's offline phase: the three ICU classifiers trained before
+Algorithms 1 and 2 place any job (examples/serve_hierarchical.py,
+`train_offline`).
+
+It runs on the card unless asked for the CPU, and raises without one:
+
+  python -m repro_torch.launch.train --arch qwen2-1.5b --steps 5 \\
+      --batch 8 --seq 1024                       # full width, on the card
+  python -m repro_torch.launch.train --arch qwen2-1.5b --reduced \\
+      --steps 20 --device cpu                    # reduced, plain path
+  python -m repro_torch.launch.train --icu --device cpu
+
+There is no --mesh: the port runs on one device (ROADMAP queue 1 item 11
+brings distribution). On the card the gradients run through the kernels'
+backward kernels; a model whose blocks reach a kernel with no backward yet
+(zamba2's ssm_scan, xlstm's mlstm_chunk) raises there and trains on the
+CPU only.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import time
+from typing import Callable, Iterator, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.checkpoint import checkpointer
+from repro_torch.configs import ARCH_NAMES, get_config
+from repro_torch.configs.icu_lstm import ICU_WORKLOADS
+from repro_torch.data import icu
+from repro_torch.data.pipeline import (MarkovTokenDataset, audio_stub,
+                                       vision_stub)
+from repro_torch.device import resolve_device, synchronize
+from repro_torch.models import build_model
+from repro_torch.models.lstm import ICULSTM
+from repro_torch.training import optimizer, train_loop
+
+
+def make_batches(cfg, batch: int, seq: int, seed: int = 0,
+                 device: str | torch.device = "cpu") -> Iterator[dict]:
+    """MarkovTokenDataset batches (+ the modality stubs), on `device`."""
+    dev = torch.device(device)
+    ds = MarkovTokenDataset(vocab_size=cfg.vocab_size, seq_len=seq,
+                            batch_size=batch, seed=seed)
+    for b in ds.batches():
+        if cfg.family == "vlm":
+            b["vision_embeds"] = vision_stub(batch, cfg, seed)
+        if cfg.is_encdec:
+            b["frames"] = audio_stub(batch, cfg, seed)
+        yield {k: v.to(dev) for k, v in b.items()}
+
+
+def opt_config(lr: float, steps: int) -> optimizer.AdamWConfig:
+    """The reference launcher's AdamW settings."""
+    return optimizer.AdamWConfig(lr=lr, total_steps=steps,
+                                 warmup_steps=min(20, steps // 5))
+
+
+@dataclasses.dataclass
+class TrainRun:
+    """What `run` did and what it holds: the per-step losses, learning
+    rates and host seconds (each after a synchronise), the peak device
+    memory (bytes, CUDA only), and the live model, parameters, optimizer
+    state, step function and batch stream, so a caller can take one more
+    step (to trace it)."""
+    cfg: object
+    model: object
+    params: dict
+    opt_state: optimizer.AdamWState
+    step_fn: Callable
+    batches: Iterator[dict]
+    losses: list
+    lrs: list
+    step_seconds: list
+    peak_bytes: Optional[int]
+
+
+def run(arch: str, *, reduced: bool = False, steps: int = 100,
+        batch: int = 8, seq: int = 128, lr: float = 3e-4,
+        microbatches: int = 1, checkpoint_dir: Optional[str] = None,
+        checkpoint_every: int = 0, device: str | torch.device | None = None,
+        seed: int = 0, log_every: int = 10, log_fn=print) -> TrainRun:
+    """Train `arch` (reduced to d_model 256, vocab 512 with `reduced`, as
+    the reference) from parameters drawn on the device from `seed`."""
+    dev = resolve_device(device)
+    cfg = get_config(arch)
+    if reduced:
+        cfg = cfg.reduced(d_model=256, vocab=512)
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(seed),
+                        device=dev)
+    opt_state = optimizer.init(params)
+    step_fn = train_loop.make_train_step(model, opt_config(lr, steps),
+                                         microbatches=microbatches)
+    batches = make_batches(cfg, batch, seq, seed, dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    losses, lrs, secs = [], [], []
+    for i, b in zip(range(steps), batches):
+        synchronize(dev)
+        t0 = time.perf_counter()
+        params, opt_state, m = step_fn(params, opt_state, b)
+        losses.append(float(m["loss"]))
+        synchronize(dev)
+        secs.append(time.perf_counter() - t0)
+        lrs.append(m["lr"])
+        if i % log_every == 0 or i == steps - 1:
+            log_fn(f"step {i:5d} loss {losses[-1]:.4f} lr {m['lr']:.2e} "
+                   f"({sum(secs) / (i + 1):.2f}s/step)")
+        if checkpoint_dir and checkpoint_every and \
+                (i + 1) % checkpoint_every == 0:
+            checkpointer.save(checkpoint_dir, i + 1, {"params": params})
+    if checkpoint_dir:
+        log_fn(f"saved {checkpointer.save(checkpoint_dir, steps, {'params': params})}")
+    peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" \
+        else None
+    return TrainRun(cfg, model, params, opt_state, step_fn, batches, losses,
+                    lrs, secs, peak)
+
+
+def _icu_batches(cfg, x: np.ndarray, y: np.ndarray,
+                device: torch.device) -> Iterator[dict]:
+    """The offline phase's batches: 32 records drawn with replacement
+    from the training set, numpy seed 0, as the reference's example."""
+    rng = np.random.default_rng(0)
+    while True:
+        idx = rng.integers(0, len(x), 32)
+        yield {"features": torch.as_tensor(x[idx], device=device),
+               "labels": torch.as_tensor(y[idx], device=device)}
+
+
+def _icu_accuracy(model: ICULSTM, cfg, x: np.ndarray, y: np.ndarray) -> float:
+    """Held-out accuracy as the reference's example scores it: argmax for
+    the binary tasks, per-label sign for the 25 phenotypes."""
+    dev = next(model.parameters()).device
+    with torch.no_grad():
+        logits = model(torch.as_tensor(x, device=dev)).cpu()
+    yt = torch.as_tensor(y)
+    if cfg.num_classes == 25:
+        return float(((logits > 0) == yt.bool()).float().mean())
+    return float((logits.argmax(-1) == yt).float().mean())
+
+
+def train_offline(steps: int = 60, *, device: str | torch.device | None = None,
+                  state_dicts: Optional[dict] = None, log_fn=print) -> dict:
+    """The paper's offline phase: each ICU workload's model trained for
+    `steps` AdamW steps at batch 32 on 256 generated records (seed 0),
+    scored on 128 held-out ones (seed 9). Models start from
+    `state_dicts[name]` when given, else from torch seed 0. Returns
+    {name: {"model", "losses" (every step), "accuracy"}}."""
+    dev = resolve_device(device)
+    out = {}
+    for wl in ICU_WORKLOADS:
+        model = ICULSTM(wl, generator=torch.Generator().manual_seed(0),
+                        device=dev)
+        if state_dicts is not None:
+            model.load_state_dict(state_dicts[wl.name])
+        x, y = icu.generate(wl, 256, seed=0)
+        _, _, hist = train_loop.train(model, None, _icu_batches(wl, x, y, dev),
+                                      steps=steps, log_every=1,
+                                      log_fn=lambda *_: None)
+        xt, yt = icu.generate(wl, 128, seed=9)
+        acc = _icu_accuracy(model, wl, xt, yt)
+        losses = [loss for _, loss in hist]
+        log_fn(f"  {wl.name:36s} loss {losses[0]:.3f}->{losses[-1]:.3f} "
+               f"acc {acc:.2%}")
+        out[wl.name] = {"model": model, "losses": losses, "accuracy": acc}
+    return out
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", choices=ARCH_NAMES)
+    ap.add_argument("--icu", action="store_true",
+                    help="the paper's offline phase: train the three ICU "
+                         "classifiers")
+    ap.add_argument("--reduced", action="store_true",
+                    help="tiny same-family variant (CPU-runnable)")
+    ap.add_argument("--steps", type=int, default=None,
+                    help="default 100 (--icu: 60)")
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--microbatches", type=int, default=1)
+    ap.add_argument("--checkpoint-dir", default=None)
+    ap.add_argument("--checkpoint-every", type=int, default=0)
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default; raises without a card) or cpu")
+    args = ap.parse_args(argv)
+    if args.icu == (args.arch is not None):
+        ap.error("give exactly one of --arch and --icu")
+    if args.icu:
+        print("=== offline phase: training the three ICU models ===")
+        train_offline(args.steps or 60, device=args.device)
+        return
+    run(args.arch, reduced=args.reduced, steps=args.steps or 100,
+        batch=args.batch, seq=args.seq, lr=args.lr,
+        microbatches=args.microbatches, checkpoint_dir=args.checkpoint_dir,
+        checkpoint_every=args.checkpoint_every, device=args.device)
+
+
+if __name__ == "__main__":
+    main()

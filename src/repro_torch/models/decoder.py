@@ -9,8 +9,9 @@ with one dict per group, and the decode position is a host int, so a
 decode step reads nothing back from the card. Group leaves are drawn one
 group at a time into tensors allocated once for all groups, so a model
 that takes most of the card is never held twice. The reference's sharding
-constraints have no counterpart on one card and are left out. `loss` and
-`chunked_nll` wait for the training slice.
+constraints have no counterpart on one card and are left out. `loss`
+evaluates the LM head in sequence chunks, each recomputed in the backward
+(`chunked_nll`), as the reference's `jax.checkpoint`ed scan does.
 """
 from __future__ import annotations
 
@@ -18,6 +19,7 @@ import math
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs import base
 from repro_torch.configs.base import ModelConfig
@@ -42,6 +44,55 @@ def _mask_vocab_pad(logits: torch.Tensor, vocab_size: int) -> torch.Tensor:
     return logits + torch.where(pad, -1e30, 0.0).to(logits.dtype)
 
 
+def chunked_nll(head_fn, x: torch.Tensor, labels: torch.Tensor,
+                weights: torch.Tensor, chunk: int) -> torch.Tensor:
+    """Mean next-token NLL without materialising the full-vocab logits.
+
+    head_fn: (B, T, d) -> (B, T, V) float32 logits. x: (B, S, d); labels,
+    weights: (B, S). The head runs over S in `chunk`-token slices (when
+    `chunk` divides S and S > chunk; else once over all of S), each slice
+    recomputed in the backward instead of saved (`torch.utils.checkpoint`,
+    as the reference's `jax.checkpoint` of its scan body); positions with
+    weight 0 are ignored."""
+    s = x.shape[1]
+    denom = torch.clamp(torch.sum(weights), min=1.0)
+    if s % chunk or s <= chunk:
+        return -_nll_sum(head_fn(x), labels, weights) / denom
+
+    def body(xs, ls, ws):
+        return _nll_sum(head_fn(xs), ls, ws)
+
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for c0 in range(0, s, chunk):
+        sl = slice(c0, c0 + chunk)
+        total = total + checkpoint(body, x[:, sl], labels[:, sl],
+                                   weights[:, sl], use_reentrant=False)
+    return -total / denom
+
+
+def _nll_sum(logits: torch.Tensor, labels: torch.Tensor,
+             weights: torch.Tensor) -> torch.Tensor:
+    """Weighted sum of log p(labels): an explicit log-sum-exp under a
+    stopped max, as the reference; the target logit is gathered where the
+    reference contracts a one-hot (the same value, without a (B, T, V)
+    one-hot)."""
+    m = torch.amax(logits, dim=-1, keepdim=True).detach()
+    lse = torch.log(torch.sum(torch.exp(logits - m), dim=-1)) + m[..., 0]
+    tgt = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    return torch.sum((tgt - lse) * weights)
+
+
+def next_token_targets(tokens: torch.Tensor):
+    """(labels, weights): token t + 1 at position t, the last position
+    masked (weight 0) so the sequence length stays that of the tokens."""
+    labels = torch.cat([tokens[:, 1:], torch.zeros_like(tokens[:, :1])],
+                       dim=1)
+    weights = torch.ones(tokens.shape, dtype=torch.float32,
+                         device=tokens.device)
+    weights[:, -1] = 0.0
+    return labels, weights
+
+
 def _alloc_stacked(tree, n: int):
     """An empty tree like `tree` with a leading axis of n on every leaf."""
     if isinstance(tree, dict):
@@ -58,11 +109,15 @@ def _put(stacked, tree, g: int) -> None:
         stacked[g].copy_(tree)
 
 
-def _index(tree, g: int):
-    """Group g of a stacked tree (views, no copy)."""
+def _unbind(tree, n: int) -> list:
+    """The n groups of a stacked tree (views, no copy), each leaf split
+    by one `unbind`: under autograd its backward stacks the groups'
+    gradients once, where indexing group by group would add a zero-filled
+    gradient of the whole stacked leaf per group."""
     if isinstance(tree, dict):
-        return {k: _index(v, g) for k, v in tree.items()}
-    return tree[g]
+        parts = {k: _unbind(v, n) for k, v in tree.items()}
+        return [{k: parts[k][g] for k in tree} for g in range(n)]
+    return list(torch.unbind(tree, 0))
 
 
 class TransformerStack:
@@ -104,8 +159,7 @@ class TransformerStack:
         collect = mode in ("prefill", "decode")
         caches_out = [] if collect else None
         aux_sum = {k: 0.0 for k in AUX_KEYS}
-        for g in range(self.num_groups):
-            gp = _index(p["groups"], g)
+        for g, gp in enumerate(_unbind(p["groups"], self.num_groups)):
             gcache = caches[g] if mode == "decode" else None
             out = {}
             for i, kind in enumerate(self.pattern):
@@ -205,6 +259,21 @@ class DecoderModel:
         x, _, aux = self.stack.apply(p["stack"], x, self._ctx(p, batch),
                                      mode="train")
         return self._head(p, x), aux
+
+    def loss(self, p: dict, batch: dict, *,
+             loss_chunk: int = 512) -> torch.Tensor:
+        """Next-token cross-entropy (+ the MoE load-balance aux term), the
+        LM head evaluated in `loss_chunk`-token chunks (`chunked_nll`)."""
+        tokens = batch["tokens"]
+        x = self._embed(p, tokens)
+        x, _, aux = self.stack.apply(p["stack"], x, self._ctx(p, batch),
+                                     mode="train")
+        labels, weights = next_token_targets(tokens)
+        loss = chunked_nll(lambda h: self._head(p, h), x, labels, weights,
+                           loss_chunk)
+        if self.cfg.num_experts:
+            loss = loss + 0.01 * aux["moe_aux"] / max(1, self.cfg.num_layers)
+        return loss
 
     def prefill(self, p: dict, batch: dict, max_len: Optional[int] = None):
         """Returns (last-token logits (B, V), cache).

@@ -6,8 +6,7 @@ stack of ATTN blocks. The decoder is a causal stack where every layer is
 (self-attention, cross-attention, MLP), a TransformerStack with pattern
 (ATTN, CROSS) applied num_layers times, cross-attending to the encoder's
 output. Parameters keep the reference's pytree: {"embed", "enc_norm",
-"final_norm", "encoder", "decoder", "unembed"}. `loss` waits for the
-training slice.
+"final_norm", "encoder", "decoder", "unembed"}.
 """
 from __future__ import annotations
 
@@ -21,6 +20,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import common
 from repro_torch.models.decoder import (TransformerStack, _mask_vocab_pad,
+                                        chunked_nll, next_token_targets,
                                         padded_vocab)
 
 ENCODER_PATTERN = (base.ATTN,)
@@ -91,6 +91,19 @@ class EncDecModel:
         ctx = {"cfg": self.cfg, "causal": True, "cross_states": enc}
         x, _, aux = self.decoder.apply(p["decoder"], x, ctx, mode="train")
         return self._head(p, x), aux
+
+    def loss(self, p: dict, batch: dict, *,
+             loss_chunk: int = 512) -> torch.Tensor:
+        """Next-token cross-entropy of the decoder over the encoded
+        frames, the LM head in chunks (`chunked_nll`)."""
+        enc = self.encode(p, batch["frames"])
+        tokens = batch["tokens"]
+        x = self._embed(p, tokens)
+        ctx = {"cfg": self.cfg, "causal": True, "cross_states": enc}
+        x, _, _ = self.decoder.apply(p["decoder"], x, ctx, mode="train")
+        labels, weights = next_token_targets(tokens)
+        return chunked_nll(lambda h: self._head(p, h), x, labels, weights,
+                           loss_chunk)
 
     def prefill(self, p: dict, batch: dict, max_len: Optional[int] = None):
         """Returns (last-token logits (B, V), cache); max_len as in

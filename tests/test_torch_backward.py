@@ -1,0 +1,239 @@
+"""Gradients on the CPU against the JAX reference: the plain versions of
+the port's two backward kernels (`lstm_sequence_backward_plain`,
+`flash_attention_backward_plain`, written from the formulas, which the
+card's kernels are held to in tests/test_torch_cuda.py and chip_smoke.py)
+against `jax.grad` of the reference's oracles and against torch.autograd
+of the port's plain forwards; and the gradient of every model family's
+loss against `jax.value_and_grad` of the reference's.
+
+Tolerances (float32): the LSTM's gradients 1e-5 absolute + 1e-5 relative
+against JAX and torch.autograd (the same float32 products, summed in
+another order over the steps); flash's 2e-5 absolute and relative (the
+forward's 2e-5, tests/test_kernels.py); the loss of each family 1e-5 and
+each gradient leaf within 1e-3 of its largest entry (float32 sums in
+another order through two layers; measured up to 1.5e-4, xlstm's).
+
+A query row with no live key: the Pallas kernel, the port's kernel and
+`flash_attention_plain` give 0 there, where the reference's oracle
+averages over all keys (ROADMAP queue 3); so JAX is compared on rows that
+have a live key, and torch.autograd of the plain version on all rows.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from llm_parity import Pair
+from repro.kernels import ref as jref
+from repro_torch.kernels.flash_attention import (
+    flash_attention_backward, flash_attention_backward_plain,
+    flash_attention_lse_plain, flash_attention_plain)
+from repro_torch.kernels.lstm_cell import (
+    lstm_sequence_backward, lstm_sequence_backward_plain,
+    lstm_sequence_plain, lstm_sequence_train_plain)
+
+LSTM_TOL = 1e-5
+FLASH_TOL = 2e-5
+
+# (T, B, I, H): the three ICU workloads at batch 32, and the kernel's
+# widest hidden size
+LSTM_SHAPES = [(48, 32, 76, 16), (48, 32, 17, 8), (48, 32, 76, 32),
+               (9, 3, 20, 256), (1, 2, 5, 4)]
+
+
+def _lstm_inputs(shape, seed):
+    t, b, i, h = shape
+    rng = np.random.default_rng(seed)
+    s = 1.0 / np.sqrt(i + h)
+    xs = rng.standard_normal((t, b, i)).astype(np.float32)
+    wx = (rng.standard_normal((i, 4, h)) * s).astype(np.float32)
+    wh = (rng.standard_normal((h, 4, h)) * s).astype(np.float32)
+    bias = (rng.standard_normal((4, h)) * 0.1).astype(np.float32)
+    ups = [rng.standard_normal((b, h)).astype(np.float32),
+           rng.standard_normal((b, h)).astype(np.float32),
+           rng.standard_normal((t, b, h)).astype(np.float32)]
+    return (xs, wx, wh, bias), ups
+
+
+def _plain_grads(args, ups):
+    xs, wx, wh, b = (torch.as_tensor(a) for a in args)
+    _, _, hs, gates, cs = lstm_sequence_train_plain(xs, wx, wh, b)
+    return lstm_sequence_backward(xs, wx, wh, hs, gates, cs,
+                                  *(torch.as_tensor(u) for u in ups))
+
+
+@pytest.mark.parametrize("shape", LSTM_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_lstm_backward_plain_matches_jax_grad(shape):
+    """The gradient of sum(h_T gh) + sum(c_T gc) + sum(hs ghs) through
+    the reference's `lstm_cell_reference` scanned over T from zeros."""
+    args, ups = _lstm_inputs(shape, sum(shape))
+    t, b, i, h = shape
+
+    def loss(xs, wx, wh, bias):
+        def step(carry, xt):
+            hh, cc = jref.lstm_cell_reference(
+                xt, *carry, wx.reshape(i, 4 * h), wh.reshape(h, 4 * h),
+                bias.reshape(4 * h))
+            return (hh, cc), hh
+        zero = jnp.zeros((b, h), jnp.float32)
+        (h_t, c_t), hs = jax.lax.scan(step, (zero, zero), xs)
+        return (jnp.sum(h_t * ups[0]) + jnp.sum(c_t * ups[1])
+                + jnp.sum(hs * ups[2]))
+
+    want = jax.grad(loss, argnums=(0, 1, 2, 3))(*map(jnp.asarray, args))
+    for name, got, w in zip(("dxs", "dwx", "dwh", "db"),
+                            _plain_grads(args, ups), want):
+        np.testing.assert_allclose(got.numpy(), np.asarray(w),
+                                   atol=LSTM_TOL, rtol=LSTM_TOL,
+                                   err_msg=name)
+
+
+@pytest.mark.parametrize("which", ["h", "c", "hs", "all"])
+def test_lstm_backward_plain_matches_autograd(which):
+    """Each upstream gradient alone (the others None, a zero gradient),
+    and all three, against torch.autograd of the plain scan."""
+    shape = (12, 4, 7, 8)
+    args, ups = _lstm_inputs(shape, 5)
+    pick = {"h": (0,), "c": (1,), "hs": (2,), "all": (0, 1, 2)}[which]
+    ups_t = [torch.as_tensor(u) if k in pick else None
+             for k, u in enumerate(ups)]
+    leaves = [torch.as_tensor(a).requires_grad_() for a in args]
+    outs = lstm_sequence_plain(*leaves, return_sequence=True)
+    loss = sum((o * u).sum() for o, u in zip(outs, ups_t) if u is not None)
+    want = torch.autograd.grad(loss, leaves)
+    xs, wx, wh, b = (t.detach() for t in leaves)
+    _, _, hs, gates, cs = lstm_sequence_train_plain(xs, wx, wh, b)
+    got = lstm_sequence_backward_plain(xs, wx, wh, hs, gates, cs, *ups_t)
+    for name, g, w in zip(("dxs", "dwx", "dwh", "db"), got, want):
+        torch.testing.assert_close(g, w, atol=LSTM_TOL, rtol=LSTM_TOL,
+                                   msg=name)
+
+
+def test_lstm_train_plain_matches_forward_and_bf16_record():
+    """The training forward's h, c and hs are the plain scan's, in f32 and
+    bf16; its cs is the state before the rounding to bf16, whose rounding
+    is the carried c."""
+    args, _ = _lstm_inputs((10, 3, 6, 8), 2)
+    for dtype in (torch.float32, torch.bfloat16):
+        ts = [torch.as_tensor(a).to(dtype) for a in args]
+        h, c, hs, gates, cs = lstm_sequence_train_plain(*ts)
+        hp, cp, hsp = lstm_sequence_plain(*ts, return_sequence=True)
+        assert torch.equal(h, hp) and torch.equal(c, cp) and \
+            torch.equal(hs, hsp)
+        assert gates.dtype == cs.dtype == torch.float32
+        assert gates.shape == (10, 3, 32) and cs.shape == (10, 3, 8)
+        assert torch.equal(cs[-1].to(dtype), c)
+
+
+# (b, hq, hkv, lq, lk, d, causal, window, softcap): GQA, windows, softcap,
+# Lq < Lk, Lq > Lk without a causal mask (every row has a live key)
+FLASH_CASES = [(1, 4, 2, 16, 16, 8, True, None, None),
+               (2, 6, 1, 24, 24, 16, True, None, None),
+               (1, 4, 2, 20, 20, 8, True, 5, 30.0),
+               (1, 2, 2, 12, 30, 8, True, 7, None),
+               (1, 2, 1, 30, 12, 8, False, None, 50.0),
+               (2, 2, 2, 17, 17, 8, False, None, None)]
+# rows with no live key: Lq > Lk causal (the first Lq - Lk rows), and a
+# window of 0 (every row)
+DEAD_ROW_CASES = [(1, 2, 1, 20, 8, 8, True, None, None),
+                  (1, 2, 2, 8, 8, 8, True, 0, None),
+                  (1, 4, 2, 24, 10, 8, True, 3, 20.0)]
+
+
+def _flash_inputs(case, seed):
+    b, hq, hkv, lq, lk, d = case[:6]
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal(s).astype(np.float32)
+            for s in ((b, hq, lq, d), (b, hkv, lk, d), (b, hkv, lk, d),
+                      (b, hq, lq, d))]
+
+
+def _flash_plain_grads(case, arrays):
+    q, k, v, dout = (torch.as_tensor(a) for a in arrays)
+    kw = dict(causal=case[6], window=case[7], softcap=case[8])
+    out, lse = flash_attention_lse_plain(q, k, v, **kw)
+    return flash_attention_backward(q, k, v, out, lse, dout, **kw)
+
+
+@pytest.mark.parametrize("case", FLASH_CASES, ids=str)
+def test_flash_backward_plain_matches_jax_grad(case):
+    arrays = _flash_inputs(case, sum(case[:6]))
+    kw = dict(causal=case[6], window=case[7], softcap=case[8])
+    dout = jnp.asarray(arrays[3])
+
+    def loss(q, k, v):
+        return jnp.sum(jref.attention_reference(q, k, v, **kw) * dout)
+
+    want = jax.grad(loss, argnums=(0, 1, 2))(*map(jnp.asarray, arrays[:3]))
+    for name, got, w in zip("qkv", _flash_plain_grads(case, arrays), want):
+        np.testing.assert_allclose(got.numpy(), np.asarray(w),
+                                   atol=FLASH_TOL, rtol=FLASH_TOL,
+                                   err_msg=f"d{name}")
+
+
+@pytest.mark.parametrize("case", FLASH_CASES + DEAD_ROW_CASES, ids=str)
+def test_flash_backward_plain_matches_autograd(case):
+    """Against torch.autograd of flash_attention_plain, rows with no live
+    key included: their output is 0, so their dq is 0 and they add
+    nothing to dk and dv."""
+    arrays = _flash_inputs(case, sum(case[:6]) + 1)
+    kw = dict(causal=case[6], window=case[7], softcap=case[8])
+    leaves = [torch.as_tensor(a).requires_grad_() for a in arrays[:3]]
+    out = flash_attention_plain(*leaves, **kw)
+    want = torch.autograd.grad((out * torch.as_tensor(arrays[3])).sum(),
+                               leaves)
+    got = _flash_plain_grads(case, arrays)
+    for name, g, w in zip("qkv", got, want):
+        torch.testing.assert_close(g, w, atol=FLASH_TOL, rtol=FLASH_TOL,
+                                   msg=f"d{name}")
+    _, lse = flash_attention_lse_plain(*(t.detach() for t in leaves), **kw)
+    dead = torch.isinf(lse)
+    if case in DEAD_ROW_CASES:
+        assert bool(dead.any())
+        assert bool((got[0][dead] == 0).all())
+
+
+# ----------------------------------------------- the gradient of each family
+# (arch, prompt): gemma2's 96 tokens exceed its reduced window of 64, so
+# the sliding window bites; zamba2 and xlstm take the plain paths of their
+# scans (no backward kernel yet on the card)
+FAMILIES = [("qwen2-1.5b", 32), ("gemma2-27b", 96), ("mixtral-8x7b", 32),
+            ("llama-3.2-vision-11b", 32), ("seamless-m4t-large-v2", 32),
+            ("zamba2-2.7b", 32), ("xlstm-350m", 32)]
+
+
+def _flat(tree, prefix=""):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _flat(tree[k], f"{prefix}/{k}")
+    else:
+        yield prefix, tree
+
+
+@pytest.mark.parametrize("arch,prompt", FAMILIES,
+                         ids=[a for a, _ in FAMILIES])
+def test_loss_gradient_matches_jax_grad(arch, prompt):
+    """`model.loss` and torch.autograd of it against jax.value_and_grad
+    of the reference's loss, every parameter leaf, on noised weights
+    (tests/llm_parity.py): dense, sliding/global with softcap, MoE (its
+    aux term), VLM, encoder-decoder, and zamba2 and xlstm on the plain
+    path."""
+    pair = Pair(arch, batch=2, prompt=prompt)
+    ref_loss, ref_grads = jax.value_and_grad(pair.ref.loss)(
+        pair.ref_params, pair.ref_batch())
+    leaves = list(_flat(pair.params))
+    for _, t in leaves:
+        t.requires_grad_(True)
+    loss = pair.model.loss(pair.params, pair.port_batch())
+    grads = torch.autograd.grad(loss, [t for _, t in leaves])
+    np.testing.assert_allclose(float(loss.detach()), float(ref_loss),
+                               atol=1e-5)
+    want = dict(_flat(jax.tree.map(np.asarray, ref_grads)))
+    assert sorted(want) == sorted(name for name, _ in leaves)
+    for (name, _), g in zip(leaves, grads):
+        w = want[name]
+        np.testing.assert_allclose(g.numpy(), w, rtol=0,
+                                   atol=1e-3 * max(np.abs(w).max(), 1e-6),
+                                   err_msg=name)

@@ -553,3 +553,211 @@ def test_one_group_full_width_cuda_matches_cpu(cuda, name):
     sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
     import chip_smoke
     chip_smoke.check_llm_one_group(torch, flash_attention, name)
+
+
+# ---------------------------------------------------------------- training
+# the backward kernels against their plain versions on the same record,
+# and the gradients of the models that train through them. Tolerances:
+# float32 1e-4 absolute and relative (the kernels sum in another order
+# than the plain versions: over 4H per step and T steps for the LSTM,
+# over Lq or Lk for flash); bfloat16 gradients come out rounded to bf16 on
+# both sides from float32 math, so they differ by about one rounding:
+# 2e-2, and for flash every row within 1e-2 relative L2 of the plain row
+# (chip_smoke.py's FLASH_BF16_ROW_REL), a row's norm taken as at least a
+# tenth of the mean row norm: a row whose gradient cancels to noise (dq of
+# a query with one live key is P (dP - D) = 0) has no relative error to
+# hold.
+GRAD_F32_TOL = 1e-4
+GRAD_BF16_TOL = 2e-2
+ROW_REL = 1e-2
+
+
+def _lstm_record(shape, t_len, dtype, seed, cuda):
+    b, i, h = shape
+    g = torch.Generator().manual_seed(seed)
+    s = 1.0 / np.sqrt(i + h)
+    args = [torch.randn(t_len, b, i, generator=g),
+            torch.randn(i, 4, h, generator=g) * s,
+            torch.randn(h, 4, h, generator=g) * s,
+            torch.randn(4, h, generator=g) * 0.1]
+    ups = [torch.randn(b, h, generator=g), torch.randn(b, h, generator=g),
+           torch.randn(t_len, b, h, generator=g)]
+    return ([a.to(cuda, dtype) for a in args],
+            [u.to(cuda, dtype) for u in ups])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("t_len", [1, 48])
+@pytest.mark.parametrize("shape", SHAPES + [(32, 76, 16), (32, 17, 8),
+                                            (32, 76, 32)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_lstm_sequence_backward_kernel_matches_plain(cuda, shape, t_len,
+                                                     dtype):
+    """The training forward's record (hs, gates, cs) against the plain
+    training forward's, then the backward kernel against
+    lstm_sequence_backward_plain on the kernel's record with upstream
+    gradients on h_T, c_T and hs."""
+    from repro_torch.kernels.lstm_cell import (
+        lstm_sequence_backward, lstm_sequence_backward_plain,
+        lstm_sequence_train, lstm_sequence_train_plain)
+    args, ups = _lstm_record(shape, t_len, dtype, sum(shape) + t_len, cuda)
+    rec = lstm_sequence_train(*args)
+    want = lstm_sequence_train_plain(*args)
+    fwd_tol = 1e-5 if dtype == torch.float32 else 2e-2
+    for got, exp in zip(rec, want):
+        torch.testing.assert_close(got.float(), exp.float(), atol=fwd_tol,
+                                   rtol=0)
+    xs, wx, wh, _ = args
+    before = lstm_sequence_backward.launches
+    grads = lstm_sequence_backward(xs, wx, wh, *rec[2:], *ups)
+    torch.cuda.synchronize()
+    assert lstm_sequence_backward.launches == before + 1
+    plain = lstm_sequence_backward_plain(xs, wx, wh, *rec[2:], *ups)
+    tol = GRAD_F32_TOL if dtype == torch.float32 else GRAD_BF16_TOL
+    for got, exp in zip(grads, plain):
+        assert got.dtype == dtype
+        torch.testing.assert_close(got.float(), exp.float(), atol=tol,
+                                   rtol=tol)
+
+
+@pytest.mark.parametrize("depth", [1, 2])
+def test_icu_lstm_grads_reach_every_parameter_on_cuda(cuda, depth):
+    """The repaired fault: on the card loss.backward() sets .grad on every
+    wx, wh and b (not only the head), equal to the CPU's."""
+    import dataclasses
+
+    from repro_torch.configs.icu_lstm import ICU_WORKLOADS
+    from repro_torch.data import icu
+    from repro_torch.kernels.lstm_cell import lstm_sequence_backward
+    from repro_torch.models.lstm import ICULSTM
+    for base in ICU_WORKLOADS:
+        cfg = dataclasses.replace(base, depth=depth)
+        x, y = icu.generate(cfg, 32, seed=4)
+        models = {dev: ICULSTM(cfg, generator=torch.Generator()
+                               .manual_seed(3), device=dev)
+                  for dev in (cuda, "cpu")}
+        grads = {}
+        for dev, model in models.items():
+            before = lstm_sequence_backward.launches
+            model.loss({"features": torch.as_tensor(x, device=dev),
+                        "labels": torch.as_tensor(y, device=dev)}).backward()
+            if dev == cuda:
+                assert lstm_sequence_backward.launches == before + depth
+            grads[dev] = {n: p.grad for n, p in model.named_parameters()}
+        for name, g in grads[cuda].items():
+            assert g is not None and bool(torch.isfinite(g).all()), name
+            assert bool(g.abs().max() > 0), name
+            torch.testing.assert_close(g.cpu(), grads["cpu"][name],
+                                       atol=GRAD_F32_TOL, rtol=GRAD_F32_TOL)
+
+
+FLASH_GRAD_CASES = FLASH_CASES + [
+    (2, 12, 2, 256, 256, 128, True, None, None),   # qwen2's GQA 6:1
+    (1, 4, 2, 200, 200, 64, True, 64, 50.0),       # gemma2's window, softcap
+    (1, 2, 1, 128, 256, 64, True, 32, None),       # Lq < Lk with a window
+    (1, 2, 2, 64, 64, 32, True, 0, None),          # no row has a live key
+]
+
+
+def _flash_args(case, dtype, cuda):
+    b, hq, hkv, lq, lk, d = case[:6]
+    g = torch.Generator().manual_seed(sum(case[:6]) + 1)
+    q = torch.randn(b, hq, lq, d, generator=g).to(cuda, dtype)
+    k = torch.randn(b, hkv, lk, d, generator=g).to(cuda, dtype)
+    v = torch.randn(b, hkv, lk, d, generator=g).to(cuda, dtype)
+    dout = torch.randn(b, hq, lq, d, generator=g).to(cuda, dtype)
+    return q, k, v, dout
+
+
+def _assert_grad_close(got, want, dtype, name):
+    assert got.dtype == dtype and got.shape == want.shape, name
+    g, w = got.float(), want.float()
+    tol = GRAD_F32_TOL if dtype == torch.float32 else GRAD_BF16_TOL
+    torch.testing.assert_close(g, w, atol=tol, rtol=tol, msg=name)
+    if dtype == torch.bfloat16:
+        gap, size = (g - w).norm(dim=-1), w.norm(dim=-1)
+        floor = 0.1 * size.mean()
+        assert bool((gap <= ROW_REL * torch.clamp(size, min=floor)).all()), \
+            name
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", FLASH_GRAD_CASES, ids=str)
+def test_flash_attention_backward_kernel_matches_plain(cuda, case, dtype):
+    """The training forward's row log-sum-exp against the plain one, and
+    the backward kernel against flash_attention_backward_plain on the
+    kernel's out and lse."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_backward, flash_attention_backward_plain,
+        flash_attention_lse, flash_attention_lse_plain)
+    q, k, v, dout = _flash_args(case, dtype, cuda)
+    kw = dict(causal=case[6], window=case[7], softcap=case[8])
+    out, lse = flash_attention_lse(q, k, v, **kw)
+    _, lse_p = flash_attention_lse_plain(q, k, v, **kw)
+    live = torch.isfinite(lse_p)
+    assert bool((torch.isfinite(lse) == live).all())
+    torch.testing.assert_close(lse[live], lse_p[live], atol=1e-4, rtol=1e-5)
+    before = flash_attention_backward.launches
+    got = flash_attention_backward(q, k, v, out, lse, dout, **kw)
+    torch.cuda.synchronize()
+    assert flash_attention_backward.launches == before + 1
+    want = flash_attention_backward_plain(q, k, v, out, lse, dout, **kw)
+    for name, a, b_ in zip("qkv", got, want):
+        _assert_grad_close(a, b_, dtype, f"d{name}")
+
+
+@pytest.mark.parametrize("case", [(2, 12, 2, 128, 128, 128, True, None,
+                                   None),
+                                  (1, 4, 2, 100, 100, 64, True, 33, 50.0)],
+                         ids=str)
+def test_flash_attention_autograd_on_cuda_matches_cpu(cuda, case):
+    """flash_attention under autograd on the card: one forward and one
+    backward launch, gradients equal to autograd of the plain version on
+    the CPU."""
+    from repro_torch.kernels.flash_attention import flash_attention_backward
+    q, k, v, dout = _flash_args(case, torch.float32, cuda)
+    kw = dict(causal=case[6], window=case[7], softcap=case[8])
+    grads = {}
+    for dev in (cuda, "cpu"):
+        leaves = [t.detach().to(dev).requires_grad_() for t in (q, k, v)]
+        before = (flash_attention.launches, flash_attention_backward.launches)
+        out = flash_attention(*leaves, **kw)
+        out.backward(dout.to(dev))
+        if dev == cuda:
+            assert (flash_attention.launches - before[0],
+                    flash_attention_backward.launches - before[1]) == (1, 1)
+        grads[dev] = [t.grad for t in leaves]
+    for name, a, b_ in zip("qkv", grads[cuda], grads["cpu"]):
+        torch.testing.assert_close(a.cpu(), b_, atol=GRAD_F32_TOL,
+                                   rtol=GRAD_F32_TOL, msg=f"d{name}")
+
+
+def test_kernels_without_backward_raise_under_grad(cuda):
+    """lstm_cell, ssm_scan and mlstm_chunk raise NotImplementedError on a
+    CUDA input that requires grad, and launch as before under no_grad."""
+    g = torch.Generator().manual_seed(0)
+    cell = [torch.randn(s, generator=g).to(cuda)
+            for s in ((2, 5), (2, 4), (2, 4), (5, 4, 4), (4, 4, 4), (4, 4))]
+    ssm = [torch.randn(1, 8, 2, 4, generator=g).to(cuda),
+           torch.rand(1, 8, 2, generator=g).to(cuda),
+           -torch.rand(2, generator=g).to(cuda),
+           torch.randn(1, 8, 4, generator=g).to(cuda),
+           torch.randn(1, 8, 4, generator=g).to(cuda),
+           torch.randn(2, generator=g).to(cuda)]
+    mlstm = [torch.randn(1, 8, 2, 16, generator=g).to(cuda)
+             for _ in range(3)] + [torch.randn(1, 8, 2, generator=g).to(cuda)
+                                   for _ in range(2)]
+    for fn, args, name in ((lstm_cell, cell, "lstm_cell"),
+                           (ssm_scan, ssm, "ssm_scan"),
+                           (mlstm_chunk, mlstm, "mlstm_chunk")):
+        grad_args = [a.clone().requires_grad_() if j == 0 else a
+                     for j, a in enumerate(args)]
+        with pytest.raises(NotImplementedError, match=name):
+            fn(*grad_args)
+        before = fn.launches
+        with torch.no_grad():
+            fn(*grad_args)
+        torch.cuda.synchronize()
+        assert fn.launches == before + 1

@@ -46,6 +46,30 @@ def test_metro_run_loads_neither_jax_nor_repro():
     assert out.stdout.strip() == ""
 
 
+def test_training_loads_neither_jax_nor_repro():
+    """The training slice's modules and one reduced `launch.train.run`
+    (and the ICU offline phase, one step) on the CPU stay clear of jax
+    and repro."""
+    code = ("import sys, tempfile\n"
+            "import repro_torch.training.optimizer\n"
+            "import repro_torch.training.train_loop\n"
+            "import repro_torch.checkpoint.checkpointer\n"
+            "import repro_torch.launch.train as t\n"
+            "d = tempfile.mkdtemp()\n"
+            "t.run('qwen2-1.5b', reduced=True, steps=2, batch=2, seq=16,"
+            " device='cpu', checkpoint_dir=d, log_fn=lambda *_: None)\n"
+            "t.train_offline(1, device='cpu', log_fn=lambda *_: None)\n"
+            "bad = sorted(m for m in sys.modules if m == 'jax' or "
+            "m.startswith('jax.') or m == 'repro' or "
+            "m.startswith('repro.'))\n"
+            "print(','.join(bad))\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120,
+                         check=True)
+    assert out.stdout.strip() == ""
+
+
 def _imports(path):
     for node in ast.walk(ast.parse(path.read_text(), str(path))):
         if isinstance(node, ast.Import):

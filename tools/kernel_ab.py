@@ -8,7 +8,10 @@ process per checkout:
     median and range of REPEATS measurements;
   * a hash of each float32 LSTM kernel's SASS (`cuobjdump -sass`, the
     instructions without their addresses and encodings), so two checkouts
-    can be seen to run the same machine code;
+    can be seen to run the same machine code, and of the forward flash
+    kernels';
+  * the serving forward of `flash_attention` (no autograd) in bf16 at
+    zamba2's and qwen2-1.5b's prefill shapes, by CUDA-graph replay;
   * with --flash: the bf16 `flash_attention` kernel against its plain
     version at every shape of chip_smoke.py's phase 3 (same inputs, same
     seeds), under both of its bars: ATTN_TOL's allclose and
@@ -34,29 +37,41 @@ REPO = Path(__file__).resolve().parent.parent
 REPEATS = 5
 # float32 LSTM kernels, by their mangled names: before the bf16 inputs the
 # sequence kernel was templated on HR alone and the step kernel was not a
-# template; after, the sequence kernel's float instance is <HR, float> and
-# the step kernel's all-float32 instance is mask 0
-SEQ_F32 = re.compile(r"lstm_sequence_kernelILi(\d+)Ef?E")
+# template; after, the sequence kernel's float instance is <HR, float>, and
+# since the training forward <HR, float, false> (the serving instance; the
+# training instance <HR, float, true> is left out), and the step kernel's
+# all-float32 instance is mask 0
+SEQ_F32 = re.compile(r"lstm_sequence_kernelILi(\d+)Ef?(?:Lb0E)?E")
 CELL_F32 = re.compile(r"lstm_cell_kernel(?:ILi0EE|E)")
+# the forward flash kernels' serving instances (<width> before the training
+# forward, <width, false> after it)
+FLASH_FWD = re.compile(r"flash_(bf16|f32)_kernelILi(\d+)E(?:Lb0E)?E")
+# bf16 flash forward timed at the serving paths' prefill shapes
+FLASH_TIMED = {"zamba2": "ZAMBA_ATTN", "qwen2-1.5b": "qwen2-1.5b"}
 
 
 def f32_sass(build):
     """{kernel: (instructions, sha256 of their text)} of the float32 LSTM
-    kernels in this checkout's built lstm_cell library."""
+    kernels in this checkout's built lstm_cell library and of the forward
+    flash kernels in its flash_attention library."""
     import hashlib
     cuobjdump = Path(build._nvcc()).with_name("cuobjdump")
-    sass = subprocess.run([str(cuobjdump), "-sass",
-                           str(build.library_path("lstm_cell"))],
-                          capture_output=True, text=True, check=True,
-                          timeout=300).stdout
+    sass = "".join(subprocess.run([str(cuobjdump), "-sass",
+                                   str(build.library_path(name))],
+                                  capture_output=True, text=True, check=True,
+                                  timeout=300).stdout
+                   for name in ("lstm_cell", "flash_attention"))
     out = {}
     for part in sass.split("Function : ")[1:]:
         mangled = part.split()[0]
         seq, cell = SEQ_F32.search(mangled), CELL_F32.search(mangled)
+        flash = FLASH_FWD.search(mangled)
         if seq:
             key = f"lstm_sequence_kernel<{seq.group(1)}> float32"
         elif cell:
             key = "lstm_cell_kernel float32"
+        elif flash:
+            key = f"flash_{flash.group(1)}_kernel<{flash.group(2)}>"
         else:
             continue
         ins = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(.*?)\s*;", part)
@@ -122,6 +137,21 @@ def run_one(tree: Path, flash: bool) -> dict:
             print(f"[{res['card']}] {tree.name} {key} {shape}: median "
                   f"{statistics.median(ms):.6f} ms (range {min(ms):.6f}-"
                   f"{max(ms):.6f}, {REPEATS} measurements)", flush=True)
+    from repro_torch.kernels.flash_attention import flash_attention
+    res["flash_graph_ms"] = {}
+    for label, name in FLASH_TIMED.items():
+        case = getattr(cs, name) if name.isupper() else cs.LLM_ATTN[name][0]
+        q, kk, v = cs.flash_inputs(torch, case, torch.bfloat16, cuda,
+                                   seed=200)
+        kw = cs.flash_kwargs(case)
+        ms = [cs.graph_ms(torch, lambda: flash_attention(q, kk, v, **kw),
+                          per_graph=20) for _ in range(REPEATS)]
+        res["flash_graph_ms"][label] = {"median": statistics.median(ms),
+                                        "min": min(ms), "max": max(ms)}
+        print(f"[{res['card']}] {tree.name} flash_attention bf16 {label} "
+              f"{case}: median {statistics.median(ms):.6f} ms (range "
+              f"{min(ms):.6f}-{max(ms):.6f}, {REPEATS} measurements)",
+              flush=True)
     res["sass"] = f32_sass(build)
     for key, (n, digest) in sorted(res["sass"].items()):
         print(f"{tree.name} {key}: {n} SASS instructions, sha256 {digest}")
