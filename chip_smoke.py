@@ -8,19 +8,21 @@ Phases, each of which raises on failure:
   1. environment: the card's name and power limit, torch and CUDA versions;
   2. build: every CUDA source (lstm_cell, which holds the lstm_cell step
      and the lstm_sequence forward and backward kernels, flash_attention,
-     flash_attention_bwd, ssm_scan, mlstm_chunk), from this checkout, all
-     nvcc processes at once;
+     flash_attention_bwd, ssm_scan, ssm_scan_bwd, mlstm_chunk,
+     mlstm_chunk_bwd), from this checkout, all nvcc processes at once;
   3. each kernel against its plain PyTorch version on the card, at its
      test shapes and at the shapes the main paths give it (lstm_cell and
      lstm_sequence also on bf16 inputs; flash_attention also with more
-     queries than keys); the training forwards' records and the two
-     backward kernels (lstm_sequence_backward, flash_attention_backward)
-     against their plain versions, float32 and bf16;
+     queries than keys); the training forwards' records and the four
+     backward kernels (lstm_sequence_backward, flash_attention_backward,
+     ssm_scan_backward, mlstm_chunk_backward) against their plain
+     versions, float32 and bf16;
   4. the ICU LSTM models (depth 1, and depth 2, which passes a hidden
      sequence between layers), their logits and their gradients (every
      parameter's .grad through the backward kernel), and zamba2 and
      xlstm-350m at full width with one group, on the card (kernel path)
-     against the same models on the CPU (plain path); then, on noised
+     against the same models on the CPU (plain path), logits and (on
+     noised parameters) gradients; then, on noised
      parameters, gemma2-27b (local
      + global, window cut to 64, 8 decode steps through the ring buffer,
      also held to teacher forcing), qwen2-1.5b with the int8 KV cache,
@@ -68,7 +70,12 @@ Phases, each of which raises on failure:
         5 steps at 8 x 1024 tokens (28 flash forward and 28 backward
         launches a step), one more step timed in parts and one traced;
         the gradients of one qwen2 group and of reduced gemma2 against
-        the CPU; zamba2 and xlstm raising under grad on the card;
+        the CPU; zamba2-2.7b (4 x 1024 tokens) and xlstm-350m (8 x 1024)
+        at full width and depth in bf16 through `launch.train`, 3 steps
+        each (45 + 45 ssm_scan and 9 + 9 flash launches a zamba2 step, 21
+        + 21 mlstm_chunk launches an xlstm step), step 0's batch scoring
+        lower after the last step than under the initial weights, one
+        more step of each traced;
   7. timings with CUDA events (and by CUDA-graph replay, the device time
      alone, for each kernel at its main-path shape), each printed beside
      the card's name and power limit (flash_attention also at each of
@@ -81,10 +88,12 @@ Phases, each of which raises on failure:
      pass-regime sweep (torch.profiler); the metro engine's events/s on
      CUDA and on the host CPU (phase 6e's runs); the backward kernels at
      the training paths' shapes beside cuDNN's nn.LSTM backward and
-     scaled_dot_product_attention's backward;
+     scaled_dot_product_attention's backward, and the scans' backward
+     kernels at zamba2's and xlstm's training shapes beside their bounds;
   8. one more run of each main path under torch.profiler (metro: the
      tabu run of mass_casualty_crash; the LLM paths zamba2-2.7b,
-     xlstm-350m and gemma2-27b, traced while their engines are up):
+     xlstm-350m and gemma2-27b, traced while their engines are up; one
+     training step of qwen2-1.5b, zamba2-2.7b and xlstm-350m):
      device busy share and the kernels that take the device's time.
 The second-to-last line is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. Without a CUDA device, or
@@ -283,6 +292,25 @@ MLSTM_ATOL, MLSTM_RTOL, MLSTM_M_ATOL = 5e-4, 5e-3, 1e-5
 MLSTM_BF16_Y_TOL = 2e-2
 MLSTM_CHUNK = 64                # the kernel's chunk length
 XLSTM_BLOCKS = 7                # mLSTM blocks per group
+# the scans' backward kernels (phase 3) against their plain versions,
+# float32 and bf16 under GRAD_TOL (bf16: and the row bar), with cotangents
+# on y and on the final state: ragged shapes (P, D not multiples of a
+# block's rows; L of a segment or chunk; L < 64) and the training shapes
+# of phase 6g, zamba2-2.7b's (b, l, h, p, n) at 4 x 1024 and
+# xlstm-350m's (b, l, h, d) at 8 x 1024
+SSM_TRAIN = (4, 1024, 80, 64, 64)
+MLSTM_TRAIN = (8, 1024, 4, 512)
+GRAD_NAMES = {"ssm_scan_backward": ("dx", "ddt", "da", "db", "dc", "dd"),
+              "mlstm_chunk_backward": ("dq", "dk", "dv", "di", "df")}
+SSM_GRAD_CASES = [(2, 37, 3, 24, 20), (1, 70, 5, 80, 128), SSM_TRAIN]
+MLSTM_GRAD_CASES = [(1, 40, 3, 80), (2, 300, 4, 512), MLSTM_TRAIN]
+# phase 6g: zamba2-2.7b and xlstm-350m at full width and depth in bf16
+# through launch.train, SCAN_TRAIN_STEPS steps at (batch, seq) each;
+# their launches per step: ssm_scan forward and backward per Mamba2 block
+# (45), flash forward and backward per shared-attention application (9);
+# mlstm_chunk forward and backward per mLSTM block (21)
+SCAN_TRAIN = {"zamba2-2.7b": (4, 1024), "xlstm-350m": (8, 1024)}
+SCAN_TRAIN_STEPS = 3
 # fleet planning: the reference contention benchmark's fleet (4 cloud + 2
 # edge machines, benchmarks/scheduler_scale.py bench_contention) and
 # run_wards at 32 wards x 100 patients; the contention search held
@@ -500,6 +528,35 @@ def mlstm_bound(shape, itemsize, flops_per_s):
     return nbytes / HBM_BYTES_PER_S * 1e3, ops / flops_per_s * 1e3
 
 
+def ssm_bwd_bound(shape, itemsize, flops_per_s):
+    """Least time (ms) of one ssm_scan_backward call with no cotangent on
+    the final state, as its two parts: x, b, c, dy (itemsize bytes), dt,
+    a and d (f32) read once and dx, db, dc (itemsize) and ddt, da, dd
+    (f32) written once over the HBM rate; and the reverse scan's
+    arithmetic over the peak rate for the inputs' type, per state element
+    and step: h recomputed (3 FLOPs), dh += dy C (2), the four sums dy h,
+    u dh, dh B, dh h (8), dh x B (3), dh *= e (1): 17; per output element
+    of dx, D dy + dt (.) (3)."""
+    b, l, h, p, n = shape
+    nbytes = (itemsize * (3 * b * l * h * p + 4 * b * l * n)
+              + 4 * (2 * b * l * h + 4 * h))
+    ops = 17 * b * l * h * p * n + 3 * b * l * h * p
+    return nbytes / HBM_BYTES_PER_S * 1e3, ops / flops_per_s * 1e3
+
+
+def mlstm_bwd_bound(shape, itemsize, flops_per_s):
+    """Least time (ms) of one mlstm_chunk_backward call with no cotangent
+    on the final state, as its two parts: q, k, v, dy (itemsize bytes)
+    and the f32 gates read once and dq, dk, dv (itemsize) and di, df (f32)
+    written once over the HBM rate; and 2.5 x the forward's products
+    (mlstm_bound) over the peak rate for the inputs' type, as
+    flash_bwd_bound counts a backward."""
+    b, l, h, d = shape
+    nbytes = itemsize * 7 * b * l * h * d + 4 * 4 * b * l * h
+    fwd_ops_ms = mlstm_bound(shape, itemsize, flops_per_s)[1]
+    return nbytes / HBM_BYTES_PER_S * 1e3, 2.5 * fwd_ops_ms
+
+
 def tree_to(tree, device):
     if isinstance(tree, dict):
         return {k: tree_to(v, device) for k, v in tree.items()}
@@ -691,8 +748,7 @@ def trace_generate(torch, engine, batch, label, card):
     from torch.profiler import ProfilerActivity, profile
     traced = {}
     for steps in (1, 8):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             res = engine.generate(batch, steps=steps)
             torch.cuda.synchronize()
@@ -922,9 +978,11 @@ def leaves(tree):
 def print_profile(prof, label, wall_s, top):
     """Device busy share (the device-side events' summed time over the
     traced run's wall time, which the tracing inflates) and the device
-    events (kernels, copies, fills) that take the most of it. Host-side
-    ops also report the device time of the kernels they launch; they are
-    left out, so no device time is counted twice."""
+    events (kernels, copies, fills) that take the most of it. The traces
+    record device activity alone (ProfilerActivity.CUDA: the device's
+    events and the runtime's calls, no host op tree, whose processing
+    grows with xlstm's ~274k device events a step); the runtime's calls
+    are host-side and left out."""
     from torch.autograd import DeviceType
     dev_us = sorted(((e.self_device_time_total, e.key, e.count)
                      for e in prof.key_averages()
@@ -1351,7 +1409,8 @@ def time_fleet(torch, cuda, card):
     mpt_fleet = {tiers.CC: FLEET_MPT[0], tiers.ES: FLEET_MPT[1]}
     # fleet planning on the 4 + 2 fleet: the batched device search on CUDA
     # and on the host CPU, and the Python search looped per ward (no
-    # device search). n = 1000 runs at B = 1 only if B = 32 takes over
+    # device search), the median of 3 runs at n = 100 and one run at n =
+    # 1000 (8-55 s each). n = 1000 runs at B = 1 only if B = 32 takes over
     # 60 s on CUDA
     cpu = torch.device("cpu")
     backends = (("cuda", dict(min_batch=1, device=cuda)),
@@ -1375,7 +1434,8 @@ def time_fleet(torch, cuda, card):
                 batched_s[(n, B, label)] = host_seconds(
                     torch, lambda: scheduler.search_batched(
                         jobs, machines_per_tier=mpt_fleet, **kw), card,
-                    f"search_batched B={B} n={n} fleet {FLEET_MPT} {label}")
+                    f"search_batched B={B} n={n} fleet {FLEET_MPT} {label}",
+                    reps=1 if n == large else 3)
 
     # the device search's launches in one pass-regime sweep: the batched
     # replan of phase 5's 8 x 40 fleet against the other wards' cloud jobs
@@ -1469,13 +1529,20 @@ def time_fleet(torch, cuda, card):
 
 
 
-def grad_close(torch, got, want, dtype_name):
+def grad_close(torch, got, want, dtype_name, *, to_largest=False):
     """Max |got - want| and whether got is within GRAD_TOL of want (bf16:
     and every row within FLASH_BF16_ROW_REL of the plain row, a row's
-    norm taken as at least a tenth of the mean row norm)."""
+    norm taken as at least a tenth of the mean row norm). With
+    `to_largest`, float32's absolute bar is GRAD_TOL times the gradient's
+    largest entry (at least 1): the scans' gradients are float32 sums of
+    thousands of terms (P x N per step, H x P heads, D and its column
+    blocks), whose rounding scales with the terms, so an entry that
+    cancels to near 0 carries the error of its largest terms."""
     g, w = got.float(), want.float()
     tol = GRAD_TOL[dtype_name]
-    ok = got.dtype == want.dtype and torch.allclose(g, w, atol=tol, rtol=tol)
+    atol = tol * max(1.0, float(w.abs().max())) \
+        if to_largest and dtype_name == "float32" else tol
+    ok = got.dtype == want.dtype and torch.allclose(g, w, atol=atol, rtol=tol)
     if dtype_name == "bfloat16" and w.dim() > 1:
         gap, size = (g - w).norm(dim=-1), w.norm(dim=-1)
         floor = 0.1 * size.mean()
@@ -1580,6 +1647,81 @@ def check_flash_backward(torch, cuda):
     return errs
 
 
+def check_scan_backward(torch, cuda):
+    """Phase 3: ssm_scan_backward and mlstm_chunk_backward against their
+    plain versions, float32 and bf16, at SSM_GRAD_CASES and
+    MLSTM_GRAD_CASES, with cotangents on y and on the final state, and
+    with y's alone (None for the state): one launch per call. Returns
+    {(kernel, case, dtype name): max gradient error}."""
+    from repro_torch.kernels.mlstm_chunk import (mlstm_chunk_backward,
+                                                 mlstm_chunk_backward_plain)
+    from repro_torch.kernels.ssm_scan import (ssm_scan_backward,
+                                              ssm_scan_backward_plain)
+    errs = {}
+    for name, kernel, plain, cases, inputs in (
+            ("ssm_scan_backward", ssm_scan_backward, ssm_scan_backward_plain,
+             SSM_GRAD_CASES, ssm_inputs),
+            ("mlstm_chunk_backward", mlstm_chunk_backward,
+             mlstm_chunk_backward_plain, MLSTM_GRAD_CASES, mlstm_inputs)):
+        for k, case in enumerate(cases):
+            for dtype in (torch.float32, torch.bfloat16):
+                dname = str(dtype).removeprefix("torch.")
+                args = inputs(torch, case, dtype, cuda, seed=1300 + k)
+                g = torch.Generator().manual_seed(1400 + k)
+                if name == "ssm_scan_backward":
+                    b, l, h, p, n = case
+                    ups = [torch.randn(b, l, h, p, generator=g).to(cuda, dtype),
+                           torch.randn(b, h, p, n, generator=g).to(cuda)]
+                else:
+                    b, l, h, d = case
+                    ups = [torch.randn(b, l, h, d, generator=g).to(cuda, dtype),
+                           torch.randn(b, h, d, d, generator=g).to(cuda),
+                           torch.randn(b, h, d, generator=g).to(cuda),
+                           torch.randn(b, h, generator=g).to(cuda)]
+                worst, ok, launched = 0.0, True, []
+                # each float32 gradient under the unscaled GRAD_TOL bar
+                # too: largest error, largest |plain| entry, entries
+                # outside it (over both state variants)
+                unscaled, tol = {}, GRAD_TOL["float32"]
+                for state in (ups[1:], [None] * len(ups[1:])):
+                    before = kernel.launches
+                    got = kernel(*args, ups[0], *state)
+                    launched.append(kernel.launches - before)
+                    want = plain(*args, ups[0], *state)
+                    torch.cuda.synchronize()
+                    for gname, a, w in zip(GRAD_NAMES[name], got, want):
+                        err, good = grad_close(
+                            torch, a, w, str(w.dtype).removeprefix("torch."),
+                            to_largest=True)
+                        worst, ok = max(worst, err), ok and good
+                        if w.dtype == torch.float32:
+                            out = int((~torch.isclose(a.float(), w, atol=tol,
+                                                      rtol=tol)).sum())
+                            e0, m0, n0 = unscaled.get(gname, (0.0, 0.0, 0))
+                            unscaled[gname] = (max(e0, err), max(
+                                m0, float(w.abs().max())), n0 + out)
+                    del got, want
+                print(f"{name} {case} {dname}: max |kernel - plain| over "
+                      f"the gradients {worst:.3e} (rtol = GRAD_TOL of each "
+                      f"gradient's dtype, atol the same, in float32 times "
+                      f"the gradient's largest entry"
+                      + (f", bf16 rows {FLASH_BF16_ROW_REL}"
+                         if dname == "bfloat16" else "")
+                      + f"), with and without the state's cotangents; "
+                      f"launches {launched}")
+                print(f"  {name} {case} {dname}, float32 gradients under "
+                      f"the unscaled bar ({tol} abs + rel): "
+                      + ", ".join(f"{gn} error {e:.3e}, largest {m:.3e}, "
+                                  f"{n} entries outside"
+                                  for gn, (e, m, n) in unscaled.items()))
+                if not ok or launched != [1, 1]:
+                    raise RuntimeError(f"{name} {case} {dname}: kernel and "
+                                       f"plain version disagree")
+                errs[(name, case, dname)] = worst
+                del args, ups
+    return errs
+
+
 def check_icu_grads(torch, cuda, kernels):
     """Phase 4: the ICU models (depth 1 and 2) under loss.backward() on
     the card against the CPU on the same weights and batch: every
@@ -1671,17 +1813,21 @@ def expect_launches(label, got, want):
 def step_breakdown(prof):
     """Device self time (ms) of a traced training step by kind: GEMMs
     (cuBLAS's gemm / xmma / nvjet kernels, CUTLASS), flash forward, flash
-    backward, and the rest (elementwise passes, reductions, copies, the
+    backward, the scans' (ssm_scan, mlstm_chunk) forward and backward
+    kernels, and the rest (elementwise passes, reductions, copies, the
     optimizer's updates)."""
     from torch.autograd import DeviceType
     kinds = {"gemm": 0.0, "flash forward": 0.0, "flash backward": 0.0,
-             "other": 0.0}
+             "scan forward": 0.0, "scan backward": 0.0, "other": 0.0}
     for e in prof.key_averages():
         if e.device_type == DeviceType.CPU:
             continue
         key = e.key.lower()
         kind = ("flash backward" if "flash_bwd" in key
                 else "flash forward" if "flash_" in key
+                else "scan backward" if "ssm_bwd" in key
+                or "mlstm_bwd" in key
+                else "scan forward" if "ssm_" in key or "mlstm_" in key
                 else "gemm" if any(w in key for w in (
                     "gemm", "xmma", "cutlass", "cublas", "nvjet"))
                 else "other")
@@ -1707,9 +1853,18 @@ def drive_training(torch, kernels, card):
       c. the gradient of one qwen2-1.5b group at full width and of reduced
          gemma2 (window 64 biting at 160 tokens, softcaps), float32 on
          noised weights, card against CPU (`grads_card_vs_cpu`);
-      d. zamba2 and xlstm (reduced) under grad on the card raise the
-         stated NotImplementedError (ssm_scan, mlstm_chunk).
-    Returns {"icu": launches of a, "qwen2": launches of b, "step_s": ...}.
+      d. zamba2-2.7b (4 x 1024) and xlstm-350m (8 x 1024) at full width
+         and depth, bf16, `launch.train.run`, SCAN_TRAIN_STEPS steps each:
+         losses finite and the last below step 0's, and step 0's batch
+         scoring lower after the last step than under the initial
+         weights (eval step, no grad); per step one ssm_scan
+         forward and backward launch per Mamba2 block and one flash
+         forward and backward per shared-attention application (zamba2),
+         one mlstm_chunk forward and backward per mLSTM block (xlstm),
+         nothing else; seconds per step, tokens/s, peak memory; one more
+         step traced.
+    Returns {"icu": launches of a, "qwen2": launches of b, "step_s": ...,
+    "scans": {arch: launches, step_s, tokens_s, peak_gb of d}}.
     """
     import gc
 
@@ -1814,8 +1969,7 @@ def drive_training(torch, kernels, card):
     print(f"[{card}] qwen2-1.5b one step in parts: loss + gradients "
           f"{t1 - t0:.4f} s, AdamW update {t2 - t1:.4f} s (loss "
           f"{float(loss):.4f})")
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         params, opt_state, m = run.step_fn(params, opt_state,
                                            next(run.batches))
@@ -1857,27 +2011,82 @@ def drive_training(torch, kernels, card):
         del p_gpu
     torch.cuda.empty_cache()
 
-    # d. no backward kernel yet: raise under grad on the card
-    for name, kernel in (("zamba2-2.7b", "ssm_scan"),
-                         ("xlstm-350m", "mlstm_chunk")):
-        cfg = get_config(name).reduced(layers=2, d_model=128, vocab=256)
-        model = build_model(cfg)
-        p = model.init(torch.Generator(cuda).manual_seed(0), device=cuda)
-        for t in leaves(p):
-            t.requires_grad_(True)
-        try:
-            model.loss(p, {k: v.to(cuda) for k, v in
-                           make_batch(cfg, 1, 64).items()})
-        except NotImplementedError as e:
-            print(f"{name} (reduced) under grad on the card: "
-                  f"NotImplementedError: {e}")
-            if kernel not in str(e):
-                raise
-        else:
-            raise RuntimeError(f"{name} under grad on the card did not "
-                               f"raise")
+    # d. zamba2-2.7b and xlstm-350m at full width and depth through
+    # launch.train, each run's counters read around it alone
+    scans = {}
+    for name, (batch_n, seq) in SCAN_TRAIN.items():
+        gc.collect()
+        torch.cuda.empty_cache()
+        reset()
+        held = torch.cuda.memory_allocated()
+        run = train.run(name, steps=SCAN_TRAIN_STEPS, batch=batch_n,
+                        seq=seq, device=cuda, log_every=1)
+        launched = counts()
+        cfg = run.cfg
+        n_params = sum(t.numel() for t in leaves(run.params))
+        later = run.step_seconds[1:]
+        step = statistics.median(later)
+        tokens_n = batch_n * seq
+        peak = (run.peak_bytes or 0) - held
+        print(f"{name} training: {n_params / 1e9:.3f} B parameters (bf16), "
+              f"losses {[round(x, 4) for x in run.losses]}; launches "
+              f"{launched}")
+        print(f"[{card}] {name} training {batch_n} x {seq}: step 0 "
+              f"{run.step_seconds[0]:.3f} s, steps 1-{SCAN_TRAIN_STEPS - 1} "
+              f"{[round(x, 4) for x in later]} s (median {step:.4f} s, "
+              f"{tokens_n / step:.0f} tokens/s); peak device memory "
+              f"{peak / 1e9:.2f} GB (max_memory_allocated less the "
+              f"{held / 1e9:.2f} GB held before)")
+        if not np.isfinite(run.losses).all() or \
+                not run.losses[-1] < run.losses[0]:
+            raise RuntimeError(f"{name} training: losses {run.losses}")
+        pattern = list(cfg.group_pattern)
+        per_step = ({"ssm_scan": pattern.count("mamba") * cfg.num_groups,
+                     "flash_attention": pattern.count("shared_attn")
+                     * cfg.num_groups}
+                    if name.startswith("zamba2") else
+                    {"mlstm_chunk": pattern.count("mlstm") * cfg.num_groups})
+        want = {n: 0 for n in kernels}
+        for n, c in per_step.items():
+            want[n] = want[f"{n}_backward"] = c * SCAN_TRAIN_STEPS
+        expect_launches(f"{name} training", launched, want)
+        # the fall judged on one fixed batch, step 0's (the stream drawn
+        # again from run's seed 0): its loss under the initial weights
+        # (drawn again from seed 0) and after the last step, both by the
+        # eval step; counters already read
+        first = next(train.make_batches(cfg, batch_n, seq, 0, cuda))
+        evaluate = train_loop.make_eval_step(run.model)
+        p0 = run.model.init(torch.Generator(device=cuda).manual_seed(0),
+                            device=cuda)
+        fixed = [float(evaluate(p0, first)),
+                 float(evaluate(run.params, first))]
+        del p0
+        print(f"{name} training: step 0's batch, loss {fixed[0]:.4f} under "
+              f"the initial weights (step 0 reported {run.losses[0]:.4f}), "
+              f"{fixed[1]:.4f} after step {SCAN_TRAIN_STEPS - 1}")
+        if not np.isfinite(fixed).all() or not fixed[1] < fixed[0]:
+            raise RuntimeError(f"{name} training: step 0's batch, loss "
+                               f"{fixed[0]} before and {fixed[1]} after")
+        # one more step, traced (phase 8)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            m = run.step_fn(run.params, run.opt_state,
+                            next(run.batches))[2]
+            float(m["loss"])
+            torch.cuda.synchronize()
+            traced_s = time.perf_counter() - t0
+        print_profile(prof, f"[{card}] traced {name} training step "
+                      f"({batch_n} x {seq})", traced_s, 10)
+        kinds_ms = step_breakdown(prof)
+        print(f"[{card}] traced {name} training step, device time by kind: "
+              + ", ".join(f"{k} {v:.2f} ms" for k, v in kinds_ms.items()))
+        scans[name] = {"launches": launched, "step_s": step,
+                       "tokens_s": tokens_n / step, "peak_gb": peak / 1e9}
+        del run, m, prof
+    gc.collect()
+    torch.cuda.empty_cache()
     return {"icu": icu_launches, "qwen2": qwen_launches, "step_s": step_s,
-            "tokens_s": tokens / step_s}
+            "tokens_s": tokens / step_s, "scans": scans}
 
 
 def time_backward(torch, cuda, card):
@@ -1980,6 +2189,46 @@ def time_backward(torch, cuda, card):
     return per, ft
 
 
+def time_scan_backward(torch, cuda, card):
+    """Phase 7 for the scans' backward kernels at the training paths'
+    shapes, bf16, with a cotangent on y alone (as a loss that drops the
+    final state gives it): ssm_scan_backward at SSM_TRAIN (its two
+    launches) and mlstm_chunk_backward at MLSTM_TRAIN (its six), each
+    beside its plain version and its bound; no single PyTorch call
+    computes either. Returns {kernel: times}."""
+    from repro_torch.kernels.mlstm_chunk import (mlstm_chunk_backward,
+                                                 mlstm_chunk_backward_plain)
+    from repro_torch.kernels.ssm_scan import (ssm_scan_backward,
+                                              ssm_scan_backward_plain)
+    out = {}
+    for name, kernel, plain, shape, inputs, bound, launches in (
+            ("ssm_scan_backward", ssm_scan_backward, ssm_scan_backward_plain,
+             SSM_TRAIN, ssm_inputs, ssm_bwd_bound, 2),
+            ("mlstm_chunk_backward", mlstm_chunk_backward,
+             mlstm_chunk_backward_plain, MLSTM_TRAIN, mlstm_inputs,
+             mlstm_bwd_bound, 6)):
+        args = inputs(torch, shape, torch.bfloat16, cuda, seed=1500)
+        dy = inputs(torch, shape, torch.bfloat16, cuda, seed=1501)[0]
+        t = {"ms": event_ms(torch, lambda: kernel(*args, dy), 20, warmup=3),
+             "plain_ms": event_ms(torch, lambda: plain(*args, dy), 2,
+                                  warmup=1),
+             "library_ms": None}
+        by_bytes, by_ops = bound(shape, 2, BF16_FLOPS)
+        t["bound_ms"] = max(by_bytes, by_ops)
+        t["bound_by"] = "bytes" if by_bytes >= by_ops else "operations"
+        f32_ops = bound(shape, 2, F32_FLOPS)[1]
+        out[name] = t
+        print(f"[{card}] {name} {shape} bf16 (CUDA cores, float32 sums): "
+              f"{t['ms']:.4f} ms ({launches} launches), plain "
+              f"{t['plain_ms']:.4f} ms, library none (no single PyTorch "
+              f"call computes it), bound bytes {by_bytes:.6f} ms / "
+              f"operations {by_ops:.6f} ms at the bf16 rate (kernel / "
+              f"bound {t['ms'] / t['bound_ms']:.1f}; at the f32 CUDA-core "
+              f"rate the operations would take {f32_ops:.6f} ms)")
+        del args, dy
+    return out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2001,8 +2250,11 @@ def main():
                                                lstm_sequence,
                                                lstm_sequence_backward,
                                                lstm_sequence_plain)
-    from repro_torch.kernels.mlstm_chunk import mlstm_chunk, mlstm_chunk_plain
-    from repro_torch.kernels.ssm_scan import ssm_scan, ssm_scan_plain
+    from repro_torch.kernels.mlstm_chunk import (mlstm_chunk,
+                                                 mlstm_chunk_backward,
+                                                 mlstm_chunk_plain)
+    from repro_torch.kernels.ssm_scan import (ssm_scan, ssm_scan_backward,
+                                              ssm_scan_plain)
     from repro_torch.launch import serve
     from repro_torch.models import build_model
     from repro_torch.models.lstm import ICULSTM
@@ -2010,6 +2262,15 @@ def main():
 
     torch.backends.cuda.matmul.allow_tf32 = False   # plain f32 matmuls
     cuda = torch.device("cuda")
+
+    # each part's seconds, host clock, as it ends
+    clock = [time.perf_counter()] * 2
+
+    def mark(part):
+        now = time.perf_counter()
+        print(f"[clock] {part}: {now - clock[1]:.1f} s (at "
+              f"{now - clock[0]:.1f} s)")
+        clock[1] = now
 
     # 1. environment
     card = card_line()
@@ -2020,9 +2281,11 @@ def main():
     # 2. build
     t0 = time.perf_counter()
     libs = build.build("lstm_cell", "flash_attention", "flash_attention_bwd",
-                       "ssm_scan", "mlstm_chunk")
+                       "ssm_scan", "ssm_scan_bwd", "mlstm_chunk",
+                       "mlstm_chunk_bwd")
     print(f"build: {len(libs)} kernel(s) in "
           f"{time.perf_counter() - t0:.2f} s")
+    mark("1, 2. environment and build")
 
     # 3. kernel vs plain version
     max_err = 0.0
@@ -2038,6 +2301,7 @@ def main():
                                f"{KERNEL_ATOL}")
         max_err = max(max_err, err)
 
+    mark("3. lstm_cell")
     # lstm_sequence: a whole layer in one launch, h_T, c_T and the hidden
     # sequence against the scanned plain cell
     seq_err = 0.0
@@ -2178,15 +2442,20 @@ def main():
                                    f"plain version disagree")
             mlstm_err[(shape, name)] = max(errs.values())
 
+    mark("3. forward kernels")
     # the backward kernels (training) against their plain versions
     lstm_bwd_err = check_lstm_backward(torch, cuda)
     flash_bwd_err = check_flash_backward(torch, cuda)
+    scan_bwd_err = check_scan_backward(torch, cuda)
     kernels = {"lstm_cell": lstm_cell, "lstm_sequence": lstm_sequence,
                "lstm_sequence_backward": lstm_sequence_backward,
                "flash_attention": flash_attention,
                "flash_attention_backward": flash_attention_backward,
-               "ssm_scan": ssm_scan, "mlstm_chunk": mlstm_chunk}
+               "ssm_scan": ssm_scan, "ssm_scan_backward": ssm_scan_backward,
+               "mlstm_chunk": mlstm_chunk,
+               "mlstm_chunk_backward": mlstm_chunk_backward}
 
+    mark("3. backward kernels")
     # 4. models on the card vs the same models on the CPU: the three ICU
     # workloads as configured (depth 1) and stacked to depth 2
     for cfg in [c for base in ICU_WORKLOADS
@@ -2252,16 +2521,41 @@ def main():
                            f"decode {dec}; expected 7 and 0")
     del xp_gpu
 
+    mark("4. ICU, zamba2, xlstm forwards")
+    # their gradients at one group, full width, float32, noised weights:
+    # card (the scans' backward kernels) against the CPU (autograd of the
+    # plain scans)
+    for label, model, cfg, seed, want in (
+            ("zamba2-2.7b one group", zmodel, zcfg, 52,
+             dict(flash_attention=1, flash_attention_backward=1,
+                  ssm_scan=5, ssm_scan_backward=5)),
+            ("xlstm-350m one group", xmodel, xcfg, 53,
+             dict(mlstm_chunk=XLSTM_BLOCKS,
+                  mlstm_chunk_backward=XLSTM_BLOCKS))):
+        p_gpu = noised(torch, model.init(torch.Generator(cuda).manual_seed(
+            seed), device=cuda), seed=seed + 10)
+        _, _, _, launched = grads_card_vs_cpu(
+            torch, model, p_gpu, make_batch(cfg, 1, 128, seed=seed), kernels,
+            f"{label} gradient, float32, noised, tokens (1, 128)")
+        expect_launches(label, launched, dict({n: 0 for n in kernels},
+                                              **want))
+        del p_gpu
+    torch.cuda.empty_cache()
+
+    mark("4. zamba2 and xlstm gradients")
     # the rest of the LLM zoo at full width, one group, float32, noised
     for name in ONE_GROUP_CHECKS:
         check_llm_one_group(torch, flash_attention, name)
 
+    mark("4. the LLM zoo")
     # the ICU models' gradients on the card (the repaired fault)
     check_icu_grads(torch, cuda, kernels)
 
+    mark("4. ICU gradients")
     # 5. device search: CUDA vs CPU on integer instances
     check_device_search(torch, cuda)
 
+    mark("5. device search")
     # 6. the main path, with every counter read around it alone
     for k in kernels.values():
         k.launches = 0
@@ -2304,6 +2598,7 @@ def main():
                            f"lstm_cell launches {step_launches}, others "
                            f"{others}; expected {want}, 0 and none")
 
+    mark("6a. serve")
     # 6b, 6c. the LLM serving paths, each with every counter read around
     # it alone
     zcfg = get_config("zamba2-2.7b")
@@ -2326,21 +2621,29 @@ def main():
     del xengine, xbatch
     torch.cuda.empty_cache()
 
+    mark("6b, 6c. zamba2 and xlstm serving")
     # 6d. the fleet path (its counters read around each run alone)
     fleet_runs = drive_fleet(torch, kernels, card)
 
+    mark("6d. fleet")
     # 6e. the metro engine (its counters read around the phase alone)
     metro_rates = drive_metro(torch, kernels, card)
 
+    mark("6e. metro")
     # 6f. the rest of the LLM zoo at full width (each run's counters read
     # around it alone)
     zoo_launches = drive_llm_zoo(torch, kernels, card)
     flash_launches += sum(zoo_launches.values())
 
+    mark("6f. the LLM zoo")
     # 6g. the training paths (each run's counters read around it alone)
     trained = drive_training(torch, kernels, card)
-    flash_launches += trained["qwen2"]["flash_attention"]
+    zamba_trained = trained["scans"]["zamba2-2.7b"]["launches"]
+    xlstm_trained = trained["scans"]["xlstm-350m"]["launches"]
+    flash_launches += (trained["qwen2"]["flash_attention"]
+                       + zamba_trained["flash_attention"])
 
+    mark("6g. training")
     # main-path lstm_sequence launches per (B, I, H): calibrate runs two
     # inferences of CALIBRATE_RECORDS per workload, execution one of
     # EXECUTE_RECORDS per job, each one launch per layer
@@ -2580,9 +2883,12 @@ def main():
 
     time_fleet(torch, cuda, card)
 
+    mark("7. forward timings")
     # the backward kernels at the training paths' shapes
     per_bwd, fbt = time_backward(torch, cuda, card)
+    sbt = time_scan_backward(torch, cuda, card)
 
+    mark("7. backward timings")
     # the metro engine's throughput (engine clock, phase 6e's runs): the
     # tabu run of each pack on CUDA, and the default pack's cut runs on
     # CUDA and as torch on the host CPU
@@ -2596,8 +2902,7 @@ def main():
     # (its counters are not read); device busy share = summed device self
     # time over the traced run's wall time, which the tracing inflates
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         serve.run(patients=SERVE_PATIENTS, horizon=30.0, seed=0,
                   execute=True, verbose=False)
@@ -2607,8 +2912,7 @@ def main():
                   f"{SERVE_PATIENTS})", traced_s, 8)
     # the metro path: the tabu run of the pack whose four-ward replans
     # take the most batched device searches
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         serve.run_metro(scenario=METRO_BATCHED_PACKS[0], policies=("tabu",),
                         device_threshold=PYTHON_ONLY, device="cuda",
@@ -2618,6 +2922,7 @@ def main():
     print_profile(prof, f"[{card}] traced run_metro({METRO_BATCHED_PACKS[0]}"
                   f", tabu)", traced_s, 8)
 
+    mark("8. traces")
     print(json.dumps({"kernels": [{
         "name": "lstm_cell", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/lstm_cell.cu",
@@ -2653,7 +2958,7 @@ def main():
         "name": "ssm_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ssm_scan.cu",
         "replaces": "src/repro/kernels/ssm_scan.py:34",
-        "launches": ssm_launches,
+        "launches": ssm_launches + zamba_trained["ssm_scan"],
         "max_abs_err": ssm_err[(ZAMBA_SSM, "bfloat16")],
         "ms": st["ms"], "plain_ms": st["plain_ms"],
         "bound_ms": max(st["bytes_ms"], st["ops_ms"]),
@@ -2663,7 +2968,7 @@ def main():
         "name": "mlstm_chunk", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/mlstm_chunk.cu",
         "replaces": "src/repro/kernels/mlstm_chunk.py:37",
-        "launches": mlstm_launches,
+        "launches": mlstm_launches + xlstm_trained["mlstm_chunk"],
         "max_abs_err": mlstm_err[(XLSTM_MLSTM, "bfloat16")],
         "ms": mt["ms"], "plain_ms": mt["plain_ms"],
         "bound_ms": max(mt["bytes_ms"], mt["ops_ms"]),
@@ -2687,11 +2992,27 @@ def main():
         "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
         "replaces": "src/repro/kernels/flash_attention.py:33, its "
                     "gradient (JAX autodiff there; no Pallas backward)",
-        "launches": trained["qwen2"]["flash_attention_backward"],
+        "launches": trained["qwen2"]["flash_attention_backward"]
+        + zamba_trained["flash_attention_backward"],
         "max_abs_err": flash_bwd_err[(QWEN_TRAIN_ATTN, "bfloat16")],
         "ms": fbt["ms"], "plain_ms": fbt["plain_ms"],
         "bound_ms": fbt["bound_ms"], "bound_by": fbt["bound_by"],
-        "library_ms": fbt["library_ms"]}]}))
+        "library_ms": fbt["library_ms"]}] + [{
+        "name": name, "route": "cuda",
+        "source": f"src/repro_torch/kernels/csrc/{source}_bwd.cu",
+        "replaces": f"{replaces}, its gradient (JAX autodiff there; no "
+                    f"Pallas backward)",
+        "launches": launched, "max_abs_err": scan_bwd_err[(name, shape,
+                                                           "bfloat16")],
+        "ms": sbt[name]["ms"], "plain_ms": sbt[name]["plain_ms"],
+        "bound_ms": sbt[name]["bound_ms"], "bound_by": sbt[name]["bound_by"],
+        "library_ms": None} for name, source, replaces, launched, shape in (
+            ("ssm_scan_backward", "ssm_scan",
+             "src/repro/kernels/ssm_scan.py:34",
+             zamba_trained["ssm_scan_backward"], SSM_TRAIN),
+            ("mlstm_chunk_backward", "mlstm_chunk",
+             "src/repro/kernels/mlstm_chunk.py:37",
+             xlstm_trained["mlstm_chunk_backward"], MLSTM_TRAIN))]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

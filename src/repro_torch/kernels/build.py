@@ -1,4 +1,5 @@
-"""Build the CUDA sources under `csrc/` at first use and load them.
+"""Build the CUDA sources under `csrc/` at first use and load them; and
+`check_card`, the device check each wrapper makes before it launches.
 
 Each `csrc/<name>.cu` is compiled by `nvcc` into a shared library with a
 plain C interface, loaded with ctypes. Libraries go to `_build/` beside this
@@ -84,3 +85,14 @@ def build(*names: str) -> Dict[str, Path]:
 def load(name: str) -> ctypes.CDLL:
     """The built library of `csrc/<name>.cu`, built first if needed."""
     return ctypes.CDLL(str(build(name)[name]))
+
+
+def check_card(op: str, t) -> None:
+    """Raise unless `t` lies on the current CUDA device: a wrapper's kernel
+    launches on the current device's stream only."""
+    import torch
+    if t.device.type != "cuda":
+        raise ValueError(f"{op} runs on cuda or cpu, not {t.device}")
+    if t.device.index != torch.cuda.current_device():
+        raise ValueError(f"{op} inputs lie on {t.device}, but the current "
+                         f"device is cuda:{torch.cuda.current_device()}")

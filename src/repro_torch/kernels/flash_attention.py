@@ -170,13 +170,6 @@ def _backward_entry():
     return fn
 
 
-def _check_card(op: str, t: torch.Tensor) -> None:
-    if t.device.type != "cuda":
-        raise ValueError(f"{op} runs on cuda or cpu, not {t.device}")
-    if t.device.index != torch.cuda.current_device():
-        raise ValueError(f"{op} inputs lie on {t.device}, but the current "
-                         f"device is cuda:{torch.cuda.current_device()}")
-
 
 def _mask_args(causal, window, softcap):
     return (int(causal), int(window is not None),
@@ -248,7 +241,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      softcap=softcap, scale=scale)
-    _check_card("flash_attention", q)
+    build.check_card("flash_attention", q)
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
@@ -274,7 +267,7 @@ def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return flash_attention_lse_plain(q, k, v, causal=causal,
                                          window=window, softcap=softcap,
                                          scale=scale)
-    _check_card("flash_attention", q)
+    build.check_card("flash_attention", q)
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     return _forward(q, k, v, causal, window, softcap, scale, True)
@@ -309,7 +302,7 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
         return flash_attention_backward_plain(
             q, k, v, out, lse, dout, causal=causal, window=window,
             softcap=softcap, scale=scale)
-    _check_card("flash_attention_backward", q)
+    build.check_card("flash_attention_backward", q)
     b, hq, lq, d = q.shape
     _, hkv, lk, _ = k.shape
     if d > MAX_HEAD_DIM:

@@ -150,13 +150,6 @@ def _backward_entry():
     return fn
 
 
-def _check_card(op: str, t: torch.Tensor) -> None:
-    if t.device.type != "cuda":
-        raise ValueError(f"{op} runs on cuda or cpu, not {t.device}")
-    if t.device.index != torch.cuda.current_device():
-        raise ValueError(f"{op} inputs lie on {t.device}, but the current "
-                         f"device is cuda:{torch.cuda.current_device()}")
-
 
 def _wants_grad(*tensors) -> bool:
     return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
@@ -173,7 +166,7 @@ def lstm_cell(x: torch.Tensor, h: torch.Tensor, c: torch.Tensor,
     _check(x, h, c, wx, wh, b)
     if x.device.type == "cpu":
         return lstm_cell_plain(x, h, c, wx, wh, b)
-    _check_card("lstm_cell", x)
+    build.check_card("lstm_cell", x)
     if _wants_grad(x, h, c, wx, wh, b):
         raise NotImplementedError(
             "lstm_cell has no backward kernel: the one-step kernel is on no "
@@ -211,7 +204,7 @@ def _sequence_launch(xs, wx, wh, b, *, return_sequence: bool,
     """One launch of the sequence kernel. Returns (h_T, c_T, hs or None,
     gates, cs); with `train`, hs always and the training record gates
     (T, B, 4H) and cs (T, B, H), float32, else None for both."""
-    _check_card("lstm_sequence", xs)
+    build.check_card("lstm_sequence", xs)
     t_len, bsz, i_dim = xs.shape
     h_dim = wh.shape[0]
     if h_dim > MAX_SEQUENCE_HIDDEN:
@@ -283,7 +276,7 @@ def lstm_sequence(xs: torch.Tensor, wx: torch.Tensor, wh: torch.Tensor,
         return lstm_sequence_plain(xs, wx, wh, b,
                                    return_sequence=return_sequence)
     if _wants_grad(xs, wx, wh, b):
-        _check_card("lstm_sequence", xs)
+        build.check_card("lstm_sequence", xs)
         h, c, hs = _LSTMSequence.apply(xs, wx, wh, b)
         return h, c, hs if return_sequence else None
     return _sequence_launch(xs, wx, wh, b, return_sequence=return_sequence,
@@ -418,7 +411,7 @@ def lstm_sequence_backward(xs: torch.Tensor, wx: torch.Tensor,
     if xs.device.type == "cpu":
         return lstm_sequence_backward_plain(xs, wx, wh, hs, gates, cs,
                                             **ups)
-    _check_card("lstm_sequence_backward", xs)
+    build.check_card("lstm_sequence_backward", xs)
     for name, t, shape in (("hs", hs, (t_len, bsz, h_dim)),
                            ("gates", gates, (t_len, bsz, 4 * h_dim)),
                            ("cs", cs, (t_len, bsz, h_dim))):

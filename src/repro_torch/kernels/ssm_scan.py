@@ -1,5 +1,5 @@
-"""Mamba2 selective-state-space scan: a hand-written CUDA kernel and its
-plain version.
+"""Mamba2 selective-state-space scan: hand-written CUDA kernels, forward
+and backward, and their plain versions.
 
 Port of the Pallas TPU kernel `ssm_scan` (src/repro/kernels/ssm_scan.py):
 one B/C group shared by all heads, a float32 state from zero, y in x's
@@ -10,12 +10,19 @@ chunks of 64 steps; float32 inputs take the recurrence step by step on
 the CUDA cores. Both take any L, H and P, so `chunk` and `block_h` are
 accepted for the signature and not used.
 
-`ssm_scan` takes the kernel for CUDA tensors and the plain PyTorch
-version for CPU tensors; on the card it launches the kernel or raises. It
-has no backward kernel yet: on a CUDA tensor with grad enabled and an
-input that requires grad it raises NotImplementedError rather than return
-a tensor autograd cannot see (on the CPU autograd differentiates the
-plain version). It counts its launches in `ssm_scan.launches`.
+Training: on the card, `ssm_scan` under autograd is a
+`torch.autograd.Function` whose forward launches the serving kernel as it
+stands and whose backward is `ssm_scan_backward`, the hand-written
+`csrc/ssm_scan_bwd.cu` (the Pallas kernel has no backward; the reference
+differentiates its scan by autodiff). The backward recomputes the states
+itself rather than have the forward store them. Its plain version,
+`ssm_scan_backward_plain`, is written from the formulas; nothing on the
+card's path runs a plain version.
+
+Each wrapper takes its kernel for CUDA tensors and its plain PyTorch
+version for CPU tensors (where autograd differentiates the plain scan);
+on the card it launches the kernel or raises. They count their launches
+in `ssm_scan.launches` and `ssm_scan_backward.launches`.
 """
 from __future__ import annotations
 
@@ -75,29 +82,22 @@ def _entry():
     return fn
 
 
-def ssm_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
-             b: torch.Tensor, c: torch.Tensor, d: torch.Tensor, *,
-             chunk: int = 256,
-             block_h: int = 8) -> tuple[torch.Tensor, torch.Tensor]:
-    """x: (B, L, H, P); dt: (B, L, H) (post-softplus, > 0); a: (H,) (< 0);
-    b, c: (B, L, N) (single group shared across heads); d: (H,).
-    Returns (y (B, L, H, P), final_state (B, H, P, N) float32). Launches
-    on the current CUDA stream and does not synchronise."""
-    _check(x, dt, a, b, c, d)
-    if x.device.type == "cpu":
-        return ssm_scan_plain(x, dt, a, b, c, d)
-    if x.device.type != "cuda":
-        raise ValueError(f"ssm_scan runs on cuda or cpu, not {x.device}")
-    if x.device.index != torch.cuda.current_device():
-        raise ValueError(f"ssm_scan inputs lie on {x.device}, but the "
-                         f"current device is cuda:"
-                         f"{torch.cuda.current_device()}")
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (x, dt, a, b, c, d)):
-        raise NotImplementedError(
-            "ssm_scan has no backward kernel yet (ROADMAP queue 2 item 3, "
-            "its backward): on the card zamba2's Mamba2 blocks run under "
-            "torch.no_grad() only; train them on the CPU")
+@functools.lru_cache(maxsize=None)
+def _backward_entries():
+    lib = build.load("ssm_scan_bwd")
+    size = lib.repro_ssm_scan_bwd_workspace
+    size.argtypes = [ctypes.c_int] * 5
+    size.restype = ctypes.c_longlong
+    fn = lib.repro_ssm_scan_bwd
+    fn.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 6 \
+        + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return size, fn
+
+
+
+def _forward(x, dt, a, b, c, d):
+    """One launch of the forward kernel: (y, final state)."""
     bsz, l, h, p = x.shape
     n = b.shape[-1]
     if n > MAX_STATE_DIM:
@@ -121,4 +121,166 @@ def ssm_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     return y, state
 
 
+class _SsmScan(torch.autograd.Function):
+    """The kernel under autograd: the forward launches the forward kernel,
+    the backward `ssm_scan_backward`'s kernels. A cotangent that autograd
+    leaves out (the final state of a loss that drops it) stays None,
+    which the backward takes as zero."""
+
+    @staticmethod
+    def forward(ctx, x, dt, a, b, c, d):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(x, dt, a, b, c, d)
+        return _forward(x, dt, a, b, c, d)
+
+    @staticmethod
+    def backward(ctx, dy, dstate):
+        x, dt, a, b, c, d = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros_like(x)
+        return ssm_scan_backward(x, dt, a, b, c, d, dy.contiguous(),
+                                 None if dstate is None
+                                 else dstate.contiguous())
+
+
+def ssm_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+             b: torch.Tensor, c: torch.Tensor, d: torch.Tensor, *,
+             chunk: int = 256,
+             block_h: int = 8) -> tuple[torch.Tensor, torch.Tensor]:
+    """x: (B, L, H, P); dt: (B, L, H) (post-softplus, > 0); a: (H,) (< 0);
+    b, c: (B, L, N) (single group shared across heads); d: (H,).
+    Returns (y (B, L, H, P), final_state (B, H, P, N) float32). Launches
+    on the current CUDA stream and does not synchronise. With grad
+    enabled and an input that requires it, the backward launches
+    `ssm_scan_backward`'s kernels; the forward launch is the same
+    either way."""
+    _check(x, dt, a, b, c, d)
+    if x.device.type == "cpu":
+        return ssm_scan_plain(x, dt, a, b, c, d)
+    build.check_card("ssm_scan", x)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, dt, a, b, c, d)):
+        return _SsmScan.apply(x, dt, a, b, c, d)
+    return _forward(x, dt, a, b, c, d)
+
+
 ssm_scan.launches = 0
+
+
+def ssm_states_plain(x, dt, a, b):
+    """The states the backward recomputes: h_{t-1} of every step t (the
+    state before it; h_{-1} = 0), float32 (B, H, P, N) each."""
+    f32 = torch.float32
+    bsz, l, h, p = x.shape
+    dtf = dt.to(f32)
+    decay = torch.exp(dtf * a.to(f32))
+    upd = x.to(f32) * dtf[..., None]
+    bf = b.to(f32)
+    state = x.new_zeros((bsz, h, p, b.shape[-1]), dtype=f32)
+    prev = []
+    for t in range(l):
+        prev.append(state)
+        state = (state * decay[:, t, :, None, None]
+                 + torch.einsum("bhp,bn->bhpn", upd[:, t], bf[:, t]))
+    return prev
+
+
+def ssm_scan_backward_plain(x, dt, a, b, c, d, dy, dstate=None):
+    """The backward kernel's function in plain PyTorch, written from the
+    formulas (csrc/ssm_scan_bwd.cu). With h_t the state after step t
+    (h_{-1} = 0), e_t = exp(dt_t a) and the reverse scan
+        dh_t = dy_t (x) C_t + e_{t+1} dh_{t+1},   dh_{L-1} starting from
+        the final state's cotangent `dstate` (None: zero),
+    the gradients are
+        dx_t = D dy_t + dt_t dh_t B_t
+        ddt_t = sum_{p,n} dh_t (a e_t h_{t-1} + x_t (x) B_t)
+        da = sum_t dt_t e_t sum dh_t h_{t-1}
+        dB_t = sum_{h,p} dt_t x_t dh_t,   dC_t = sum_{h,p} dy_t h_t
+        dD = sum dy x.
+    float32 math; returns (dx, ddt, da, db, dc, dd), dx, db and dc in
+    x's dtype, the others float32."""
+    f32 = torch.float32
+    bsz, l, h, p = x.shape
+    n = b.shape[-1]
+    xf, dtf, bf, cf, dyf = (t.to(f32) for t in (x, dt, b, c, dy))
+    af = a.to(f32)
+    decay = torch.exp(dtf * af)                               # (B, L, H)
+    upd = xf * dtf[..., None]                                 # (B, L, H, P)
+    prev = ssm_states_plain(x, dt, a, b)
+    dh = (x.new_zeros((bsz, h, p, n), dtype=f32) if dstate is None
+          else dstate.to(f32).clone())
+    dxs, ddt, db, dc = (torch.empty_like(t) for t in (xf, dtf, bf, cf))
+    da = x.new_zeros((h,), dtype=f32)
+    for t in range(l - 1, -1, -1):
+        hp, e = prev[t], decay[:, t]
+        ht = hp * e[..., None, None] + torch.einsum("bhp,bn->bhpn",
+                                                    upd[:, t], bf[:, t])
+        dh = dh + torch.einsum("bhp,bn->bhpn", dyf[:, t], cf[:, t])
+        dc[:, t] = torch.einsum("bhpn,bhp->bn", ht, dyf[:, t])
+        db[:, t] = torch.einsum("bhpn,bhp->bn", dh, upd[:, t])
+        dxs[:, t] = dtf[:, t, :, None] * torch.einsum("bhpn,bn->bhp", dh,
+                                                      bf[:, t])
+        dh_hp = torch.einsum("bhpn,bhpn->bh", dh, hp)
+        ddt[:, t] = (af * e * dh_hp
+                     + torch.einsum("bhpn,bhp,bn->bh", dh, xf[:, t],
+                                    bf[:, t]))
+        da = da + (dtf[:, t] * e * dh_hp).sum(0)
+        dh = dh * e[..., None, None]
+    dx = dxs + dyf * d.to(f32)[None, None, :, None]
+    dd = (dyf * xf).sum((0, 1, 3))
+    return (dx.to(x.dtype), ddt, da, db.to(b.dtype), dc.to(c.dtype), dd)
+
+
+def ssm_scan_backward(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+                      b: torch.Tensor, c: torch.Tensor, d: torch.Tensor,
+                      dy: torch.Tensor, dstate: torch.Tensor | None = None):
+    """The gradient of `ssm_scan` at (x, dt, a, b, c, d): dy the gradient
+    of y (x's shape and dtype, contiguous), dstate that of the final state
+    ((B, H, P, N) float32, contiguous) or None for zero. Returns (dx, ddt,
+    da, db, dc, dd) as `ssm_scan_backward_plain` gives them. On the card:
+    one call of `csrc/ssm_scan_bwd.cu` (two launches: the reverse scan,
+    which writes dx and per-block partial sums, and their reduction), no
+    atomics, counted once in `ssm_scan_backward.launches`; on the CPU,
+    `ssm_scan_backward_plain`."""
+    _check(x, dt, a, b, c, d)
+    bsz, l, h, p = x.shape
+    n = b.shape[-1]
+    if dy.shape != x.shape or dy.dtype != x.dtype or \
+            dy.device != x.device or not dy.is_contiguous():
+        raise ValueError(f"dy must be a contiguous {x.dtype} tensor of x's "
+                         f"shape {tuple(x.shape)} on {x.device}")
+    if dstate is not None and (
+            dstate.shape != (bsz, h, p, n) or dstate.dtype != torch.float32
+            or dstate.device != x.device or not dstate.is_contiguous()):
+        raise ValueError(f"dstate must be contiguous float32 "
+                         f"{(bsz, h, p, n)} on {x.device}")
+    if x.device.type == "cpu":
+        return ssm_scan_backward_plain(x, dt, a, b, c, d, dy, dstate)
+    build.check_card("ssm_scan_backward", x)
+    if n > MAX_STATE_DIM:
+        raise ValueError(f"state dim N={n} exceeds the kernel's "
+                         f"{MAX_STATE_DIM}")
+    dx, ddt, db, dc = (torch.empty_like(t) for t in (x, dt, b, c))
+    da, dd = torch.empty_like(a), torch.empty_like(d)
+    if x.numel() == 0 or n == 0:
+        return (dx.copy_(dy * d[None, None, :, None]), ddt.zero_(),
+                da.zero_(), db.zero_(), dc.zero_(),
+                (dy.float() * x.float()).sum((0, 1, 3)))
+    size, fn = _backward_entries()
+    work = torch.empty(size(bsz, l, h, p, n), dtype=torch.float32,
+                       device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    err = fn(x.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(),
+             c.data_ptr(), d.data_ptr(), dy.data_ptr(),
+             None if dstate is None else dstate.data_ptr(), dx.data_ptr(),
+             ddt.data_ptr(), da.data_ptr(), db.data_ptr(), dc.data_ptr(),
+             dd.data_ptr(), work.data_ptr(), _DTYPES[x.dtype], bsz, l, h, p,
+             n, stream)
+    if err:
+        raise RuntimeError(f"ssm_scan_backward kernel launch failed: CUDA "
+                           f"error {err}")
+    ssm_scan_backward.launches += 1
+    return dx, ddt, da, db, dc, dd
+
+
+ssm_scan_backward.launches = 0

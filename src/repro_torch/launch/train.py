@@ -10,12 +10,16 @@ It runs on the card unless asked for the CPU, and raises without one:
   python -m repro_torch.launch.train --arch qwen2-1.5b --reduced \\
       --steps 20 --device cpu                    # reduced, plain path
   python -m repro_torch.launch.train --icu --device cpu
+  python -m repro_torch.launch.train --arch zamba2-2.7b --steps 3 \\
+      --batch 4 --seq 1024                       # ssm_scan's backward
+  python -m repro_torch.launch.train --arch xlstm-350m --steps 3 \\
+      --batch 8 --seq 1024                       # mlstm_chunk's backward
 
 There is no --mesh: the port runs on one device (ROADMAP queue 1 item 11
 brings distribution). On the card the gradients run through the kernels'
-backward kernels; a model whose blocks reach a kernel with no backward yet
-(zamba2's ssm_scan, xlstm's mlstm_chunk) raises there and trains on the
-CPU only.
+backward kernels (flash_attention, lstm_sequence, ssm_scan, mlstm_chunk),
+so every LLM arch of `build_model` trains there; the one-step lstm_cell,
+on no training path, has none.
 """
 from __future__ import annotations
 

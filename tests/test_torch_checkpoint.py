@@ -153,3 +153,36 @@ def test_adamw_state_crosses_both_ways():
     for a, b in zip(_leaves(m) + _leaves(v),
                     jax.tree.leaves(state.m) + jax.tree.leaves(state.v)):
         np.testing.assert_array_equal(a, np.asarray(b))
+
+
+@pytest.mark.parametrize("arch", ["zamba2-2.7b", "xlstm-350m"])
+def test_adamw_state_of_scan_archs_crosses_both_ways(arch):
+    """The reference's AdamW state after one step on reduced zamba2 and
+    xlstm (the leaves the scans' backward kernels train: a_log, dt_bias,
+    d_skip, the mLSTM's projections and gates) becomes the port's, in the
+    port model's own leaf paths and shapes, and comes back unchanged."""
+    from repro.training import optimizer as ref_opt
+    rcfg = ref_get_config(arch).reduced(layers=2, d_model=128, vocab=256)
+    rparams = ref_build_model(rcfg).init(jax.random.PRNGKey(2))
+    keys = iter(jax.random.split(jax.random.PRNGKey(3),
+                                 len(jax.tree.leaves(rparams))))
+    grads = jax.tree.map(
+        lambda a: jax.random.normal(next(keys), a.shape, jnp.float32),
+        rparams)
+    _, state, _ = ref_opt.update(ref_opt.AdamWConfig(), grads,
+                                 ref_opt.init(rparams), rparams)
+    port = convert.adamw_state_from_numpy(
+        np.asarray(state.step), jax.tree.map(np.asarray, state.m),
+        jax.tree.map(np.asarray, state.v))
+    params = convert.decoder_params_from_numpy(
+        jax.tree.map(np.asarray, rparams),
+        get_config(arch).reduced(layers=2, d_model=128, vocab=256))
+    want = [(name, t.shape) for name, t in optimizer.tree_items(params)]
+    for moments in (port.m, port.v):
+        assert [(name, t.shape)
+                for name, t in optimizer.tree_items(moments)] == want
+    step, m, v = convert.adamw_state_to_numpy(port)
+    assert step == 1
+    for a, b in zip(_leaves(m) + _leaves(v),
+                    jax.tree.leaves(state.m) + jax.tree.leaves(state.v)):
+        np.testing.assert_array_equal(a, np.asarray(b))

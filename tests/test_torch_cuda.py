@@ -735,29 +735,187 @@ def test_flash_attention_autograd_on_cuda_matches_cpu(cuda, case):
 
 
 def test_kernels_without_backward_raise_under_grad(cuda):
-    """lstm_cell, ssm_scan and mlstm_chunk raise NotImplementedError on a
-    CUDA input that requires grad, and launch as before under no_grad."""
+    """lstm_cell, the one kernel left without a backward, raises
+    NotImplementedError on a CUDA input that requires grad, and launches
+    as before under no_grad."""
     g = torch.Generator().manual_seed(0)
     cell = [torch.randn(s, generator=g).to(cuda)
             for s in ((2, 5), (2, 4), (2, 4), (5, 4, 4), (4, 4, 4), (4, 4))]
-    ssm = [torch.randn(1, 8, 2, 4, generator=g).to(cuda),
-           torch.rand(1, 8, 2, generator=g).to(cuda),
-           -torch.rand(2, generator=g).to(cuda),
-           torch.randn(1, 8, 4, generator=g).to(cuda),
-           torch.randn(1, 8, 4, generator=g).to(cuda),
-           torch.randn(2, generator=g).to(cuda)]
-    mlstm = [torch.randn(1, 8, 2, 16, generator=g).to(cuda)
-             for _ in range(3)] + [torch.randn(1, 8, 2, generator=g).to(cuda)
-                                   for _ in range(2)]
-    for fn, args, name in ((lstm_cell, cell, "lstm_cell"),
-                           (ssm_scan, ssm, "ssm_scan"),
-                           (mlstm_chunk, mlstm, "mlstm_chunk")):
-        grad_args = [a.clone().requires_grad_() if j == 0 else a
-                     for j, a in enumerate(args)]
-        with pytest.raises(NotImplementedError, match=name):
-            fn(*grad_args)
-        before = fn.launches
-        with torch.no_grad():
-            fn(*grad_args)
+    grad_args = [a.clone().requires_grad_() if j == 0 else a
+                 for j, a in enumerate(cell)]
+    with pytest.raises(NotImplementedError, match="lstm_cell"):
+        lstm_cell(*grad_args)
+    before = lstm_cell.launches
+    with torch.no_grad():
+        lstm_cell(*grad_args)
+    torch.cuda.synchronize()
+    assert lstm_cell.launches == before + 1
+
+
+# the scans' backward kernels: their test shapes, ragged ones (L not a
+# multiple of a segment or chunk, P not a multiple of a block's 16 rows,
+# N not a power of two, D not a multiple of 64, L < 64), and the training
+# shapes (zamba2-2.7b 4 x 1024, xlstm-350m 8 x 1024)
+SSM_GRAD_SHAPES = [(2, 64, 2, 8, 16), (2, 37, 3, 24, 20), (1, 70, 5, 80, 128),
+                   (1, 300, 4, 64, 64), (4, 1024, 80, 64, 64)]
+MLSTM_GRAD_SHAPES = [(1, 64, 2, 64), (2, 100, 2, 128), (1, 40, 3, 80),
+                     (2, 300, 4, 512), (8, 1024, 4, 512)]
+
+
+def _assert_scan_grad_close(got, want, name):
+    """_assert_grad_close with float32's absolute bar scaled by the
+    gradient's largest entry (at least 1): the scans' gradients are
+    float32 sums of thousands of terms (P x N per step, H x P heads, D
+    and its column blocks), whose rounding scales with the terms, so an
+    entry that cancels to near 0 carries the error of its largest terms
+    (measured on the card: within 4e-6 of the largest entry)."""
+    if want.dtype != torch.float32:
+        _assert_grad_close(got, want, want.dtype, name)
+        return
+    assert got.dtype == want.dtype and got.shape == want.shape, name
+    atol = GRAD_F32_TOL * max(1.0, float(want.abs().max()))
+    torch.testing.assert_close(got, want, atol=atol, rtol=GRAD_F32_TOL,
+                               msg=name)
+
+
+def _scan_cotangents(shapes, dtypes, seed, cuda):
+    g = torch.Generator().manual_seed(seed)
+    return [torch.randn(s, generator=g).to(cuda, dt)
+            for s, dt in zip(shapes, dtypes)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", SSM_GRAD_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_ssm_scan_backward_kernel_matches_plain(cuda, shape, dtype):
+    """The backward kernel against ssm_scan_backward_plain with
+    cotangents on y and on the final state, and with y's alone (None for
+    the state); one launch each."""
+    from repro_torch.kernels.ssm_scan import (ssm_scan_backward,
+                                              ssm_scan_backward_plain)
+    b, l, h, p, n = shape
+    args = _ssm_inputs(shape, dtype, cuda)
+    dy, dstate = _scan_cotangents([(b, l, h, p), (b, h, p, n)],
+                                  [dtype, torch.float32], sum(shape), cuda)
+    for state in (dstate, None):
+        before = ssm_scan_backward.launches
+        got = ssm_scan_backward(*args, dy, state)
         torch.cuda.synchronize()
-        assert fn.launches == before + 1
+        assert ssm_scan_backward.launches == before + 1
+        want = ssm_scan_backward_plain(*args, dy, state)
+        for name, a_, w in zip(("dx", "ddt", "da", "db", "dc", "dd"), got,
+                               want):
+            _assert_scan_grad_close(a_, w, name)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", MLSTM_GRAD_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_mlstm_chunk_backward_kernel_matches_plain(cuda, shape, dtype):
+    """The backward kernel against mlstm_chunk_backward_plain with
+    cotangents on y and on (C, n, m), and with y's alone (None for the
+    state); one launch each (its six kernels counted once)."""
+    from repro_torch.kernels.mlstm_chunk import (mlstm_chunk_backward,
+                                                 mlstm_chunk_backward_plain)
+    b, l, h, d = shape
+    args = _mlstm_inputs(shape, dtype, cuda)
+    dy, dc, dn, dm = _scan_cotangents(
+        [(b, l, h, d), (b, h, d, d), (b, h, d), (b, h)],
+        [dtype] + [torch.float32] * 3, sum(shape), cuda)
+    for state in ((dc, dn, dm), (None, None, None)):
+        before = mlstm_chunk_backward.launches
+        got = mlstm_chunk_backward(*args, dy, *state)
+        torch.cuda.synchronize()
+        assert mlstm_chunk_backward.launches == before + 1
+        want = mlstm_chunk_backward_plain(*args, dy, *state)
+        for name, a_, w in zip(("dq", "dk", "dv", "di", "df"), got, want):
+            _assert_scan_grad_close(a_, w, name)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_scan_backward_kernels_are_deterministic(cuda, dtype):
+    """Two runs of each backward give the same bits: the sums over heads
+    and column blocks go through per-block partials in a fixed order,
+    with no atomics."""
+    from repro_torch.kernels.mlstm_chunk import mlstm_chunk_backward
+    from repro_torch.kernels.ssm_scan import ssm_scan_backward
+    shape = (2, 300, 8, 64, 64)
+    args = _ssm_inputs(shape, dtype, cuda)
+    dy, dstate = _scan_cotangents([(2, 300, 8, 64), (2, 8, 64, 64)],
+                                  [dtype, torch.float32], 1, cuda)
+    runs = [ssm_scan_backward(*args, dy, dstate) for _ in range(2)]
+    for a_, b_ in zip(*runs):
+        assert torch.equal(a_, b_)
+    shape = (2, 200, 2, 512)
+    args = _mlstm_inputs(shape, dtype, cuda)
+    dy, dc, dn, dm = _scan_cotangents(
+        [shape, (2, 2, 512, 512), (2, 2, 512), (2, 2)],
+        [dtype] + [torch.float32] * 3, 2, cuda)
+    runs = [mlstm_chunk_backward(*args, dy, dc, dn, dm) for _ in range(2)]
+    for a_, b_ in zip(*runs):
+        assert torch.equal(a_, b_)
+
+
+def test_scan_autograd_on_cuda_matches_cpu(cuda):
+    """ssm_scan and mlstm_chunk under autograd on the card: one forward
+    and one backward launch each, gradients of a loss on y and on the
+    final state equal to autograd of the plain versions on the CPU."""
+    from repro_torch.kernels.mlstm_chunk import mlstm_chunk_backward
+    from repro_torch.kernels.ssm_scan import ssm_scan_backward
+    for fn, bwd, args in (
+            (ssm_scan, ssm_scan_backward,
+             _ssm_inputs((2, 100, 3, 24, 16), torch.float32, cuda)),
+            (mlstm_chunk, mlstm_chunk_backward,
+             _mlstm_inputs((2, 100, 2, 64), torch.float32, cuda))):
+        grads = {}
+        for dev in (cuda, "cpu"):
+            leaves = [t.detach().to(dev).requires_grad_() for t in args]
+            before = (fn.launches, bwd.launches)
+            y, state = fn(*leaves)
+            last = state[-1] if isinstance(state, tuple) else state
+            (y.sum() + (last * last).sum()).backward()
+            if dev == cuda:
+                assert (fn.launches - before[0],
+                        bwd.launches - before[1]) == (1, 1)
+            grads[dev] = [t.grad for t in leaves]
+        for k, (a_, b_) in enumerate(zip(grads[cuda], grads["cpu"])):
+            torch.testing.assert_close(a_.cpu(), b_, atol=GRAD_F32_TOL,
+                                       rtol=GRAD_F32_TOL, msg=f"{fn} {k}")
+
+
+@pytest.mark.parametrize("name", ["zamba2-2.7b", "xlstm-350m"])
+def test_reduced_scan_models_train_on_cuda(cuda, name):
+    """loss.backward() of the reduced zamba2 and xlstm on the card reaches
+    every parameter leaf through the scans' backward kernels (one launch
+    per Mamba2 or mLSTM block), each gradient within 1e-3 of its largest
+    CPU entry (float32 sums in another order through two layers, as
+    tests/test_torch_backward.py holds the CPU to the reference)."""
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.kernels.mlstm_chunk import mlstm_chunk_backward
+    from repro_torch.kernels.ssm_scan import ssm_scan_backward
+    from repro_torch.training import optimizer
+    cfg = get_config(name).reduced(layers=2, d_model=128, vocab=256)
+    model = build_model(cfg)
+    params = model.init(torch.Generator(cuda).manual_seed(0), device=cuda)
+    batch = make_batch(cfg, 2, 96, seed=0)
+    bwd, block = (ssm_scan_backward, "mamba") if name.startswith("zamba2") \
+        else (mlstm_chunk_backward, "mlstm")
+    per_loss = list(cfg.group_pattern).count(block) * cfg.num_groups
+    grads = {}
+    for dev in (cuda, "cpu"):
+        p = optimizer.tree_map(lambda t: t.detach().to(dev), params)
+        leaves = optimizer.tree_leaves(p)
+        for t in leaves:
+            t.requires_grad_(True)
+        before = bwd.launches
+        loss = model.loss(p, {k: v.to(dev) for k, v in batch.items()})
+        grads[dev] = torch.autograd.grad(loss, leaves)
+        if dev == cuda:
+            assert bwd.launches - before == per_loss
+    for g, c in zip(grads[cuda], grads["cpu"]):
+        assert bool(torch.isfinite(g).all())
+        torch.testing.assert_close(
+            g.cpu(), c, rtol=0, atol=1e-3 * max(float(c.abs().max()), 1e-6))

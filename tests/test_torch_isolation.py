@@ -70,6 +70,31 @@ def test_training_loads_neither_jax_nor_repro():
     assert out.stdout.strip() == ""
 
 
+def test_scan_backwards_load_neither_jax_nor_repro():
+    """The scans' modules, their wrappers under autograd and their
+    backward wrappers on the CPU stay clear of jax and repro."""
+    code = ("import sys, torch\n"
+            "from repro_torch.kernels import mlstm_chunk as mk, "
+            "ssm_scan as sk\n"
+            "g = torch.Generator().manual_seed(0)\n"
+            "x, dy = (torch.randn(1, 5, 2, 4, generator=g) for _ in "
+            "range(2))\n"
+            "s = [x, torch.rand(1, 5, 2), -torch.rand(2), "
+            "torch.randn(1, 5, 3), torch.randn(1, 5, 3), torch.randn(2)]\n"
+            "sk.ssm_scan_backward(*s, dy, None)\n"
+            "m = [x, x, x, torch.randn(1, 5, 2), torch.randn(1, 5, 2)]\n"
+            "mk.mlstm_chunk_backward(*m, dy)\n"
+            "bad = sorted(m for m in sys.modules if m == 'jax' or "
+            "m.startswith('jax.') or m == 'repro' or "
+            "m.startswith('repro.'))\n"
+            "print(','.join(bad))\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120,
+                         check=True)
+    assert out.stdout.strip() == ""
+
+
 def _imports(path):
     for node in ast.walk(ast.parse(path.read_text(), str(path))):
         if isinstance(node, ast.Import):

@@ -8,8 +8,8 @@ process per checkout:
     median and range of REPEATS measurements;
   * a hash of each float32 LSTM kernel's SASS (`cuobjdump -sass`, the
     instructions without their addresses and encodings), so two checkouts
-    can be seen to run the same machine code, and of the forward flash
-    kernels';
+    can be seen to run the same machine code, and of the forward flash,
+    ssm_scan and mlstm_chunk kernels' (what serving launches);
   * the serving forward of `flash_attention` (no autograd) in bf16 at
     zamba2's and qwen2-1.5b's prefill shapes, by CUDA-graph replay;
   * with --flash: the bf16 `flash_attention` kernel against its plain
@@ -46,6 +46,8 @@ CELL_F32 = re.compile(r"lstm_cell_kernel(?:ILi0EE|E)")
 # the forward flash kernels' serving instances (<width> before the training
 # forward, <width, false> after it)
 FLASH_FWD = re.compile(r"flash_(bf16|f32)_kernelILi(\d+)E(?:Lb0E)?E")
+# the forward ssm_scan and mlstm_chunk kernels (both dtypes, every width)
+SCAN_FWD = re.compile(r"(ssm|mlstm)_(bf16|f32)_kernel(?:ILi(\d+)EE)?")
 # bf16 flash forward timed at the serving paths' prefill shapes
 FLASH_TIMED = {"zamba2": "ZAMBA_ATTN", "qwen2-1.5b": "qwen2-1.5b"}
 
@@ -53,25 +55,29 @@ FLASH_TIMED = {"zamba2": "ZAMBA_ATTN", "qwen2-1.5b": "qwen2-1.5b"}
 def f32_sass(build):
     """{kernel: (instructions, sha256 of their text)} of the float32 LSTM
     kernels in this checkout's built lstm_cell library and of the forward
-    flash kernels in its flash_attention library."""
+    kernels in its flash_attention, ssm_scan and mlstm_chunk libraries."""
     import hashlib
     cuobjdump = Path(build._nvcc()).with_name("cuobjdump")
-    sass = "".join(subprocess.run([str(cuobjdump), "-sass",
-                                   str(build.library_path(name))],
+    libs = build.build("lstm_cell", "flash_attention", "ssm_scan",
+                       "mlstm_chunk")
+    sass = "".join(subprocess.run([str(cuobjdump), "-sass", str(lib)],
                                   capture_output=True, text=True, check=True,
                                   timeout=300).stdout
-                   for name in ("lstm_cell", "flash_attention"))
+                   for lib in libs.values())
     out = {}
     for part in sass.split("Function : ")[1:]:
         mangled = part.split()[0]
         seq, cell = SEQ_F32.search(mangled), CELL_F32.search(mangled)
-        flash = FLASH_FWD.search(mangled)
+        flash, scan = FLASH_FWD.search(mangled), SCAN_FWD.search(mangled)
         if seq:
             key = f"lstm_sequence_kernel<{seq.group(1)}> float32"
         elif cell:
             key = "lstm_cell_kernel float32"
         elif flash:
             key = f"flash_{flash.group(1)}_kernel<{flash.group(2)}>"
+        elif scan:
+            key = f"{scan.group(1)}_{scan.group(2)}_kernel" + (
+                f"<{scan.group(3)}>" if scan.group(3) else "")
         else:
             continue
         ins = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(.*?)\s*;", part)
