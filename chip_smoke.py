@@ -13,10 +13,12 @@ Phases, each of which raises on failure:
   3. each kernel against its plain PyTorch version on the card, at its
      test shapes and at the shapes the main paths give it (lstm_cell and
      lstm_sequence also on bf16 inputs; flash_attention also with more
-     queries than keys); the training forwards' records and the four
-     backward kernels (lstm_sequence_backward, flash_attention_backward,
-     ssm_scan_backward, mlstm_chunk_backward) against their plain
-     versions, float32 and bf16;
+     queries than keys, at the bf16 kernels' tensor-map edges and on
+     views whose base is or is not 16-byte aligned); the training
+     forwards' records and the four backward kernels
+     (lstm_sequence_backward, flash_attention_backward, ssm_scan_backward,
+     mlstm_chunk_backward) against their plain versions, float32 and bf16,
+     flash's backward also bit-equal on a second call;
   4. the ICU LSTM models (depth 1, and depth 2, which passes a hidden
      sequence between layers), their logits and their gradients (every
      parameter's .grad through the backward kernel), and zamba2 and
@@ -80,9 +82,12 @@ Phases, each of which raises on failure:
      alone, for each kernel at its main-path shape), each printed beside
      the card's name and power limit (flash_attention also at each of
      phase 6f's prefill shapes, beside scaled_dot_product_attention
-     where it computes the same function), and for ssm_scan and
-     mlstm_chunk the registers and spills `nvcc -Xptxas -v` reported and
-     the tensor-core (HMMA) instructions in each kernel's SASS; the
+     where it computes the same function), and for ssm_scan, mlstm_chunk
+     and the bf16 flash kernels the registers and spills `nvcc -Xptxas -v`
+     reported and the tensor-core (HMMA, HGMMA) and TMA-load (UTMALDG)
+     instructions in each kernel's SASS (the flash kernels held to wgmma
+     and TMA, unserialized, no spills up to D = 128), and the host time of
+     encoding a tensor map; the
      schedule searches on CUDA, on the host CPU and in Python (host clock
      after a synchronise), and the device search's kernel launches per
      pass-regime sweep (torch.profiler); the metro engine's events/s on
@@ -155,6 +160,20 @@ PADDED_ATTN = [(2, 4, 2, 200, 200, 40, True, None, None),
                (1, 4, 4, 130, 130, 72, False, None, None),
                (1, 32, 32, 1, 512, 80, True, None, None),
                (2, 32, 4, 300, 300, 80, True, 64, 30.0)]
+# the bf16 kernels' tensor-map edges: D = 80 and 256 (two and four
+# 64-column boxes, the last zero-filled past D) with L not a multiple of
+# 64 or 128, a single query, D = 36 (rows TMA cannot take: the staging
+# path), window 0 (no live key: zeros, +inf log-sum-exp)
+HOPPER_ATTN = [(2, 8, 2, 200, 333, 80, True, None, None),
+               (1, 4, 1, 70, 150, 256, True, 100, 50.0),
+               (3, 4, 4, 1, 77, 80, False, None, None),
+               (1, 4, 2, 90, 130, 36, True, None, None),
+               (2, 4, 2, 96, 96, 64, True, 0, None)]
+# and q, k, v as contiguous views into larger buffers, their bases
+# offset by these many elements: 8 (16 bytes) keeps TMA's 16-byte rule,
+# 3 fails it and takes the staging path
+VIEW_OFFSETS = (8, 3)
+VIEW_ATTN = (2, 8, 4, 200, 200, 128, True, None, None)
 ATTN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 # bf16 flash, besides ATTN_TOL: every output row (one query's D values)
 # within this relative L2 distance of the plain row. The kernel's two bf16
@@ -447,6 +466,18 @@ def flash_inputs(torch, case, dtype, device, seed):
 
 def flash_kwargs(case):
     return dict(causal=case[6], window=case[7], softcap=case[8])
+
+
+def view_inputs(torch, tensors, offset):
+    """Copies of `tensors` as contiguous views into larger buffers, each
+    starting `offset` elements in."""
+    out = []
+    for t in tensors:
+        buf = torch.empty(t.numel() + offset, dtype=t.dtype, device=t.device)
+        view = buf[offset:].view(t.shape)
+        view.copy_(t)
+        out.append(view)
+    return out
 
 
 def flash_bound(case, itemsize, flops_per_s):
@@ -936,11 +967,17 @@ def kernel_report(build, name, kernels):
     """One line per compiled kernel of `csrc/<name>.cu` named in `kernels`:
     its registers, spills and static shared memory as `nvcc -Xptxas -v`
     printed them when it was built (the build's log), and the number of
-    tensor-core instructions (HMMA) in its SASS (`cuobjdump -sass` of the
-    built library)."""
+    tensor-core instructions in its SASS (`cuobjdump -sass` of the built
+    library): HMMA (`mma.sync`), HGMMA (`wgmma`), and the TMA loads
+    (UTMALDG); and whether ptxas serialized its wgmmas (a "Potential
+    Performance Loss" note naming it). Returns [(line, label, spill bytes,
+    {instruction: count, "serialized": 0 or 1})]."""
     import re
     info, cur = {}, None
-    for line in build.log_path(name).read_text().splitlines():
+    log = build.log_path(name).read_text()
+    serialized = set(re.findall(r"wgmma\.mma_async instructions are serialized"
+                                r".*?function '(\S+)'", log))
+    for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             cur = m.group(1)
@@ -952,18 +989,30 @@ def kernel_report(build, name, kernels):
                            str(build.library_path(name))],
                           capture_output=True, text=True, check=True,
                           timeout=300).stdout
-    hmma = {}
+    counts = {}
     for part in sass.split("Function : ")[1:]:
-        hmma[part.split()[0]] = part.count("HMMA")
+        counts[part.split()[0]] = {
+            op: len(re.findall(rf"\b{op}\b", part))
+            for op in ("HMMA", "HGMMA", "UTMALDG")}
     lines = []
     for mangled, props in info.items():
         label = next((k for k in kernels if k in mangled), None)
         if label is None:
             continue
-        width = re.search(r"ILi(\d+)E", mangled)
-        label += f"<{width.group(1)}>" if width else ""
-        lines.append(f"{name}.cu {label}: {'; '.join(props)}; "
-                     f"{hmma.get(mangled, 0)} HMMA instructions in SASS")
+        args = mangled.split(label, 1)[1]
+        ints = re.findall(r"Li(\d+)E", args.split("Ev", 1)[0]) \
+            if args.startswith("I") else []
+        label += f"<{', '.join(ints)}>" if ints else ""
+        label += " (row lse)" if "Lb1E" in mangled else ""
+        n = dict(counts.get(mangled, {}), serialized=int(mangled in serialized))
+        spills = sum(int(b) for b in re.findall(
+            r"(\d+) bytes spill (?:stores|loads)", " ".join(props)))
+        lines.append((f"{name}.cu {label}: {'; '.join(props)}; "
+                      + ", ".join(f"{n.get(op, 0)} {op}"
+                                  for op in ("HMMA", "HGMMA", "UTMALDG"))
+                      + " instructions in SASS"
+                      + ("; ptxas serialized its wgmmas" if n["serialized"]
+                         else ""), label, spills, n))
     return lines
 
 
@@ -1604,17 +1653,24 @@ def check_lstm_backward(torch, cuda):
 def check_flash_backward(torch, cuda):
     """Phase 3: the training forward's row log-sum-exp and
     flash_attention_backward against their plain versions, float32 and
-    bf16, at ATTN_CASES, LQ_GT_LK_ATTN and TRAIN_ATTN. Returns {(case,
-    dtype name): max gradient error}."""
+    bf16, at ATTN_CASES, LQ_GT_LK_ATTN, TRAIN_ATTN, HOPPER_ATTN's cases
+    with D <= 128 and VIEW_ATTN's views; each call made twice, the two
+    results bit-equal (no atomics). Returns {(case, view offset, dtype
+    name): max gradient error}."""
     from repro_torch.kernels.flash_attention import (
         flash_attention_backward, flash_attention_backward_plain,
         flash_attention_lse, flash_attention_lse_plain)
     errs = {}
-    for k, case in enumerate(ATTN_CASES + LQ_GT_LK_ATTN + TRAIN_ATTN):
+    for k, (case, offset) in enumerate(
+            [(c, 0) for c in ATTN_CASES + LQ_GT_LK_ATTN + TRAIN_ATTN
+             + [h for h in HOPPER_ATTN if h[5] <= 128]]
+            + [(VIEW_ATTN, off) for off in VIEW_OFFSETS]):
         for dtype in (torch.float32, torch.bfloat16):
             name = str(dtype).removeprefix("torch.")
             q, kk, v = flash_inputs(torch, case, dtype, cuda, seed=1000 + k)
             dout = flash_inputs(torch, case, dtype, cuda, seed=2000 + k)[0]
+            if offset:
+                q, kk, v, dout = view_inputs(torch, (q, kk, v, dout), offset)
             kw = flash_kwargs(case)
             out, lse = flash_attention_lse(q, kk, v, **kw)
             _, lse_p = flash_attention_lse_plain(q, kk, v, **kw)
@@ -1626,24 +1682,29 @@ def check_flash_backward(torch, cuda):
             before = flash_attention_backward.launches
             grads = flash_attention_backward(q, kk, v, out, lse, dout, **kw)
             launched = flash_attention_backward.launches - before
+            again = flash_attention_backward(q, kk, v, out, lse, dout, **kw)
             plain = flash_attention_backward_plain(q, kk, v, out, lse, dout,
                                                    **kw)
             torch.cuda.synchronize()
+            same = all(torch.equal(a, b) for a, b in zip(grads, again))
             res = [grad_close(torch, a, w, name)
                    for a, w in zip(grads, plain)]
             err = max(e for e, _ in res)
-            print(f"flash_attention_backward {case} {name}: lse max |kernel "
-                  f"- plain| {lse_err:.3e} on {int(live.sum())} live rows "
-                  f"(atol 1e-4); max |kernel - plain| (dq, dk, dv) = "
+            view = f" (views {offset} elements in)" if offset else ""
+            print(f"flash_attention_backward {case}{view} {name}: lse max "
+                  f"|kernel - plain| {lse_err:.3e} on {int(live.sum())} live "
+                  f"rows (atol 1e-4); max |kernel - plain| (dq, dk, dv) = "
                   f"{err:.3e} (atol = rtol = {GRAD_TOL[name]}"
                   + (f", rows {FLASH_BF16_ROW_REL}" if name == "bfloat16"
-                     else "") + f"); launches {launched}")
+                     else "") + f"); launches {launched}; a second call "
+                  f"bit-equal: {same}")
             if not lse_ok or not all(ok for _, ok in res) or \
-                    launched != 1:
-                raise RuntimeError(f"flash_attention_backward {case} {name}:"
-                                   f" kernel and plain version disagree")
-            errs[(case, name)] = err
-            del q, kk, v, dout, out, lse, grads, plain
+                    launched != 1 or not same:
+                raise RuntimeError(f"flash_attention_backward {case}{view} "
+                                   f"{name}: kernel and plain version "
+                                   f"disagree, or two calls differ")
+            errs[(case, offset, name)] = err
+            del q, kk, v, dout, out, lse, grads, again, plain
     return errs
 
 
@@ -2096,9 +2157,10 @@ def time_backward(torch, cuda, card):
     loss gives them): the wrapper (the chain kernel and the products off
     it), its plain version and cuDNN's nn.LSTM backward (TF32 off) at the
     same shape. flash_attention_backward at qwen2-1.5b's training shape
-    (bf16, causal, GQA 6:1): the wrapper (its three launches), the plain
-    version and SDPA's backward (enable_gqa); the forward with and
-    without the row log-sum-exp. Returns ({shape: times}, flash times)."""
+    (bf16, causal, GQA 6:1): the wrapper (its three or four launches),
+    the plain version and SDPA's backward (enable_gqa); the forward with
+    and without the row log-sum-exp; and the wrapper at gemma2's window
+    and softcap (TRAIN_ATTN[1]). Returns ({shape: times}, flash times)."""
     from repro_torch.kernels.flash_attention import (
         flash_attention, flash_attention_backward,
         flash_attention_backward_plain, flash_attention_lse)
@@ -2178,7 +2240,8 @@ def time_backward(torch, cuda, card):
     ft["bound_ms"] = max(by_bytes, by_ops)
     ft["bound_by"] = "bytes" if by_bytes >= by_ops else "operations"
     print(f"[{card}] flash_attention_backward {case} bf16 (tensor cores, "
-          f"mma.sync): {ft['ms']:.4f} ms (3 launches), plain "
+          f"wgmma + TMA, warp-specialised): {ft['ms']:.4f} ms (3 launches, 4 "
+          f"when dK/dV are summed from head-slice partials), plain "
           f"{ft['plain_ms']:.4f} ms, SDPA backward {ft['library_ms']:.4f} "
           f"ms (max |sdpa - kernel| {lib_err:.3e}), kernel / SDPA "
           f"{ft['ms'] / ft['library_ms']:.2f}, bound bytes {by_bytes:.6f} "
@@ -2186,6 +2249,19 @@ def time_backward(torch, cuda, card):
           f"{ft['ms'] / ft['bound_ms']:.1f}); forward at the same shape "
           f"{ft['fwd_ms']:.5f} ms, with the row log-sum-exp "
           f"{ft['fwd_lse_ms']:.5f} ms; launches per training step 28")
+    # gemma2's window and softcap (no SDPA call computes the softcap)
+    case = TRAIN_ATTN[1]
+    q, kk, v = flash_inputs(torch, case, torch.bfloat16, cuda, seed=1202)
+    dout = flash_inputs(torch, case, torch.bfloat16, cuda, seed=1203)[0]
+    kw = flash_kwargs(case)
+    out, lse = flash_attention_lse(q, kk, v, **kw)
+    g_ms = event_ms(torch, lambda: flash_attention_backward(
+        q, kk, v, out, lse, dout, **kw), 20, warmup=3)
+    by_bytes, by_ops = flash_bwd_bound(case)
+    print(f"[{card}] flash_attention_backward {case} bf16 (gemma2's window "
+          f"and softcap): {g_ms:.4f} ms, SDPA backward none (softcap), "
+          f"bound bytes {by_bytes:.6f} ms / operations {by_ops:.6f} ms "
+          f"(kernel / bound {g_ms / max(by_bytes, by_ops):.1f})")
     return per, ft
 
 
@@ -2361,12 +2437,16 @@ def main():
                                f"error {err} or dtype {hk.dtype}")
 
     flash_err = {}
-    for k, case in enumerate(ATTN_CASES + [ZAMBA_ATTN] + RAGGED_ATTN
-                             + PADDED_ATTN + LQ_GT_LK_ATTN
-                             + [c for c, _ in LLM_ATTN.values()]):
+    for k, (case, offset) in enumerate(
+            [(c, 0) for c in ATTN_CASES + [ZAMBA_ATTN] + RAGGED_ATTN
+             + PADDED_ATTN + LQ_GT_LK_ATTN
+             + [c for c, _ in LLM_ATTN.values()] + HOPPER_ATTN]
+            + [(VIEW_ATTN, off) for off in VIEW_OFFSETS]):
         for dtype in (torch.float32, torch.bfloat16):
             name = str(dtype).removeprefix("torch.")
             q, kk, v = flash_inputs(torch, case, dtype, cuda, seed=k)
+            if offset:
+                q, kk, v = view_inputs(torch, (q, kk, v), offset)
             out = flash_attention(q, kk, v, **flash_kwargs(case))
             want = flash_attention_plain(q, kk, v, **flash_kwargs(case))
             torch.cuda.synchronize()
@@ -2380,13 +2460,14 @@ def main():
                 row_rel = float((gap / size.clamp_min(1e-30)).max())
                 rel = (f", max over rows |kernel - plain| / |plain| = "
                        f"{row_rel:.3e} (<= {FLASH_BF16_ROW_REL})")
-            print(f"flash_attention {case} {name}: max |kernel - plain| = "
-                  f"{err:.3e} (atol = rtol = {tol}){rel}")
+            view = f" (views {offset} elements in)" if offset else ""
+            print(f"flash_attention {case}{view} {name}: max |kernel - "
+                  f"plain| = {err:.3e} (atol = rtol = {tol}){rel}")
             if out.dtype != dtype or not rows_ok or not torch.allclose(
                     out.float(), want.float(), atol=tol, rtol=tol):
-                raise RuntimeError(f"flash_attention {case} {name}: kernel "
-                                   f"and plain version disagree")
-            flash_err[(case, name)] = err
+                raise RuntimeError(f"flash_attention {case}{view} {name}: "
+                                   f"kernel and plain version disagree")
+            flash_err[(case, offset, name)] = err
 
     ssm_err = {}
     for k, shape in enumerate(SSM_CASES + [ZAMBA_SSM] + RAGGED_SSM):
@@ -2789,6 +2870,35 @@ def main():
               f"launches per prefill {per_prefill}")
         del q, kk, v
 
+    # what the compiler made of the bf16 flash kernels: wgmma (HGMMA) and
+    # TMA loads (UTMALDG), no mma.sync (HMMA), wgmmas that ptxas did not
+    # serialize, no spills up to D = 128;
+    # and the host time of encoding one tensor map (a bf16 forward call
+    # encodes four, a backward call four)
+    for name, kinds in (("flash_attention", ("flash_bf16_kernel",)),
+                        ("flash_attention_bwd",
+                         ("flash_bwd_dkdv_bf16_kernel",
+                          "flash_bwd_dq_bf16_kernel"))):
+        for line, label, spills, n in kernel_report(build, name, kinds):
+            print(f"[{card}] {line}")
+            width = int(label.split("<")[1].split(",")[0].split(">")[0])
+            if n.get("HMMA", 0) or not n.get("HGMMA") or \
+                    not n.get("UTMALDG") or n["serialized"] or \
+                    (width <= 128 and spills):
+                raise RuntimeError(f"{name}.cu {label}: expected HGMMA and "
+                                   f"UTMALDG, no HMMA, wgmmas not "
+                                   f"serialized and (D <= 128) no spills, "
+                                   f"got {n}, {spills} spill bytes")
+    import ctypes
+    encode = build.load("flash_attention").repro_flash_tensor_map_us
+    encode.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 5
+    encode.restype = ctypes.c_double
+    q = flash_inputs(torch, ZAMBA_ATTN, torch.bfloat16, cuda, seed=200)[0]
+    print(f"[{card}] cuTensorMapEncodeTiled: "
+          f"{encode(q.data_ptr(), 4, 32, 512, 80, 10000):.3f} us a tensor "
+          f"map (host, mean of 10000)")
+    del q
+
     # ssm_scan and mlstm_chunk: the bf16 tensor-core kernels at the main
     # paths' shapes (events; CUDA-graph replay, the device time alone), the
     # float32 CUDA-core kernels at the same shapes, and what the compiler
@@ -2796,7 +2906,7 @@ def main():
     for name, kinds in (("ssm_scan", ("ssm_bf16_kernel", "ssm_f32_kernel")),
                         ("mlstm_chunk", ("mlstm_bf16_kernel",
                                          "mlstm_f32_kernel"))):
-        for line in kernel_report(build, name, kinds):
+        for line, *_ in kernel_report(build, name, kinds):
             print(f"[{card}] {line}")
     # dynamic shared memory the bf16 launches request (bf16_smem_bytes in
     # each source): ssm_scan at N = 64, mlstm_chunk at D = 512
@@ -2949,7 +3059,7 @@ def main():
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:33",
         "launches": flash_launches,
-        "max_abs_err": flash_err[(ZAMBA_ATTN, "bfloat16")],
+        "max_abs_err": flash_err[(ZAMBA_ATTN, 0, "bfloat16")],
         "ms": ft["ms"], "plain_ms": ft["plain_ms"],
         "bound_ms": max(ft["bytes_ms"], ft["ops_ms"]),
         "bound_by": "bytes" if ft["bytes_ms"] >= ft["ops_ms"]
@@ -2994,7 +3104,7 @@ def main():
                     "gradient (JAX autodiff there; no Pallas backward)",
         "launches": trained["qwen2"]["flash_attention_backward"]
         + zamba_trained["flash_attention_backward"],
-        "max_abs_err": flash_bwd_err[(QWEN_TRAIN_ATTN, "bfloat16")],
+        "max_abs_err": flash_bwd_err[(QWEN_TRAIN_ATTN, 0, "bfloat16")],
         "ms": fbt["ms"], "plain_ms": fbt["plain_ms"],
         "bound_ms": fbt["bound_ms"], "bound_by": fbt["bound_by"],
         "library_ms": fbt["library_ms"]}] + [{

@@ -18,31 +18,69 @@
 // What bounds it on an H100: at zamba2's prefill shape (B 4, H 32, L 512,
 // D 80, bf16, causal) one call moves ~42 MB (a 12.5 us byte bound) and does
 // ~5.4 GFLOP of products over the live pairs (5.4 us on the bf16 tensor
-// cores), so a tuned kernel is bound by bytes. Two kernels:
+// cores); at llama-3.2-vision's cross attention (B 4, H 32 over 8, 512
+// queries, 4096 keys, D 128) ~137 GFLOP against ~50 MB, so the longer
+// prefills are bound by the tensor cores. Two kernels:
 //
-// bf16 (`flash_bf16_kernel`, serving): FlashAttention-2 on the tensor cores
-// with `mma.sync.m16n8k16` (bf16 in, f32 accumulators).
-//   * one block of 4 warps per (64-query tile, q head, batch row); each
-//     warp owns 16 query rows; the q tiles are the grid's slowest axis,
-//     reversed, so the causal triangle's long tiles of every head start
-//     first and the short ones fill the tail;
-//   * q, and K/V tiles of 64 keys, are staged in shared memory as bf16 by
-//     16-byte cp.async copies, K/V double-buffered so tile t+1 loads while
-//     tile t computes; rows are padded by 16 bytes so the 8 row addresses
-//     of an ldmatrix fall in 8 distinct bank quads;
-//   * D is padded with zero columns up to the instantiated width DP (a
-//     multiple of 16): zeros change neither q.k nor the written columns;
-//   * S = Q.K^T per warp from ldmatrix fragments (Q's kept in registers
-//     for DP <= 128); scale, softcap and the masks act on the accumulator
-//     fragments, the masks only on tiles that cross the diagonal, the
-//     window edge or the end of the keys; the online softmax reduces over
-//     the 4 lanes of a quad, in exp2 units;
-//   * P is rounded to bf16 in registers and used as the A operand of P.V
-//     as it stands (the C layout of two m16n8 tiles is the A layout of one
-//     m16n8k16), V's fragments come from ldmatrix.trans; P never touches
-//     shared memory;
-//   * the output is divided by l (0 -> 1), rounded to bf16, staged in the
-//     warp's own q rows and written with 16-byte coalesced stores.
+// bf16 (`flash_bf16_kernel`): FlashAttention-3's structure on wgmma and
+// TMA (csrc/hopper.cuh), without its last two tricks.
+//   * work tiles of (128 queries, q head, batch row), longest causal
+//     tiles first; persistent blocks, one a multiprocessor, walk them in
+//     rounds (left to right, then right to left, so long and short tiles
+//     pair up). A block is a producer warpgroup, of which one warp issues
+//     every load, and two consumer warpgroups of 64 query rows each;
+//     setmaxnreg moves registers from the producer (40) to the consumers
+//     (232). The producer is a whole warpgroup: ptxas sizes the block's
+//     registers as for whole warpgroups (168 a thread), and the
+//     consumers' increase waits for registers that the producer hands
+//     back, which a lone warp's cannot cover, so the block would hang;
+//   * the producer loads each tile's Q into one of two buffers (one at
+//     D > 128) and keeps K and V tiles of BK keys (128, or 64 at D > 128
+//     so that O's 128 floats a thread fit beside S) in flight through TMA,
+//     in a ring of 3 stages at D <= 64 and 2 above, guarded by full
+//     barriers (one for K, one for V, so S can start before V lands) and
+//     an empty barrier per stage that all 256 consumer threads arrive on
+//     when their products have read it. Ring and Q buffers run on across
+//     a block's tiles, so the next tile's loads overlap this tile's last
+//     products and its output store (a block per tile left each tile's
+//     first loads and last store exposed: persistence was 7-16% faster at
+//     the causal 512-token shapes and 2-4% slower at a few others, in one
+//     call of tools/kernel_ab.py);
+//   * q, k, v and o are (D, L, H, B) tensor maps with boxes of 64 columns
+//     and 128-byte swizzle: a box past L reads zeros (not the next head's
+//     rows) and columns past D read zeros, so D = 80 is two boxes whose
+//     columns 80-127 are zero (the products skip them: S takes 5 k-steps
+//     and P . V is m64n80), and D = 256 four; a ragged tile needs no
+//     code. D % 8 != 0 or a base that is not 16-byte aligned fails TMA's
+//     16-byte rule: the producer warp then stages the same swizzled tiles
+//     with plain loads (stage_tile), and the consumers store O directly;
+//   * S = Q . K^T is wgmma.m64nBKk16 with both operands read from shared
+//     memory through descriptors (K-major); scale, softcap and the masks
+//     (only on tiles that cross the diagonal, the window edge or the end of
+//     the keys) and the exp2 online softmax act on the accumulator
+//     fragments, a row's 32 values over the 4 lanes of a quad; a
+//     warpgroup skips the products of a tile none of its rows can see;
+//   * O += P . V is wgmma.m64nDPk16 with P from registers (the m64nN
+//     accumulator rounded to bf16 in pairs is the A-register layout) and V
+//     the MN-major B operand (the transpose bit), its 64-column boxes LBO
+//     apart;
+//   * the softcap's tanh is one special-function instruction in the
+//     serving instance (tanh.approx, ~2^-11 relative: the exp2 of P and
+//     the softcap then cost two where tanhf's sequence cost many) and two
+//     in the training instance (tanh_fast, ~1e-7 absolute), whose
+//     log-sum-exp the backward reads back against its own logits;
+//   * the output is divided by l (0 -> 1), rounded to bf16, written into
+//     the warpgroup's own rows of the Q tile in the swizzled layout, and
+//     stored by TMA (rows past Lq and columns past D are not written).
+//   * ping-pong of the two warpgroups (csrc/hopper.cuh): each issues its S
+//     only on its turn and then hands the turn over, so one warpgroup's
+//     softmax runs under the other's products; without it both wait on
+//     the same barrier, issue together and do their softmax together with
+//     the tensor cores idle (with and without it in one call of
+//     tools/kernel_ab.py, it was a few percent faster on most shapes);
+//   Not done, for later: inside a warpgroup, issuing the next tile's S
+//   before this tile's softmax (FlashAttention-3's intra-warpgroup
+//   overlap), which needs a second S accumulator; not tried.
 //
 // float32 (`flash_f32_kernel`): the CUDA-core kernel. TF32 or bf16
 // products could not meet the float32 tolerance of 2e-5, so it keeps full
@@ -58,7 +96,9 @@
 #include <math.h>
 #include <stdint.h>
 
-#include "mma_bf16.cuh"
+#include <chrono>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -290,367 +330,426 @@ int dispatch_f32(const void* q, const void* k, const void* v, void* o,
 }
 
 // ---------------------------------------------------------------------------
-// bf16: tensor cores
+// bf16: tensor cores (wgmma), TMA, warp specialisation
 // ---------------------------------------------------------------------------
 
 using bf16 = __nv_bfloat16;
-constexpr int TC_WARPS = 4;                 // 16 query rows each
-constexpr int TC_THREADS = 32 * TC_WARPS;
-constexpr int TC_BQ = 16 * TC_WARPS;        // query rows per block
+constexpr int WG_ROWS = 64;                   // query rows per warpgroup
+constexpr int TC_BQ = 2 * WG_ROWS;            // query rows per block
+constexpr int TC_CONSUMERS = 256;             // two consumer warpgroups
+// and a producer warpgroup, of which one warp loads: the block's registers
+// (168 a thread at 384 threads) rebalance exactly, the producer giving
+// back 128 a thread (40 left) and the consumers taking 64 more (232)
+constexpr int TC_THREADS = TC_CONSUMERS + 128;
 constexpr float LOG2E = 1.4426950408889634f;
 
-// Staged rows hold DP + 8 bf16 (16 bytes more than DP), so that row r
-// starts (DP / 8 + 1) 16-byte units after row r - 1, an odd number: the 8
-// rows an ldmatrix reads fall in 8 distinct 16-byte bank quads.
-constexpr int TC_PAD = 8;
+// DP: D padded to whole 64-column boxes (64, 128 or 256)
+template <int DP>
+struct FwdTile {
+  static constexpr int BK = DP <= 128 ? 128 : 64;  // keys per tile
+  // two Q buffers where they fit beside the ring, so that the next work
+  // tile's Q lands while this one runs (one at D > 128)
+  static constexpr int QBUF = DP <= 128 ? 2 : 1;
+  static constexpr int STAGES = DP <= 64 ? 3 : 2;
+  // QBUF Q tiles, then STAGES K tiles, then STAGES V tiles, then the
+  // barriers; 1024 bytes of slack to align the tiles
+  static constexpr size_t SMEM =
+      1024 + sizeof(bf16) * (QBUF * TC_BQ * DP + 2 * STAGES * BK * DP) +
+      sizeof(uint64_t) * (2 * QBUF + 3 * STAGES);
+};
 
-// Stage ROWS rows of D columns, from row `row0` of `src` (an (L, D) slab),
-// into `dst` (row stride DP + TC_PAD); rows at or past `valid` are zero.
-// With `vec` (D % 8 == 0, 16-byte aligned slabs) by 16-byte cp.async
-// copies, each thread's share of the DP / 8 chunks a row fixed at compile
-// time; else by plain loads and stores.
-template <int DP, int ROWS>
-__device__ __forceinline__ void stage_rows(bf16* dst, const bf16* src,
-                                           int row0, int valid, int D,
-                                           bool vec) {
-  constexpr int LD = DP + TC_PAD;
-  constexpr int CH = DP / 8;
-  const int tid = threadIdx.x;
-  if (vec) {
-#pragma unroll
-    for (int i = 0; i < (ROWS * CH + TC_THREADS - 1) / TC_THREADS; ++i) {
-      const int slot = tid + i * TC_THREADS;
-      const int r = slot / CH, c = (slot - r * CH) * 8;
-      if (slot < ROWS * CH && c < D) {
-        const bool in = r < valid;
-        cp_async16(dst + r * LD + c,
-                   in ? src + static_cast<long long>(row0 + r) * D + c : src,
-                   in);
-      }
-    }
-  } else {
-    const bf16 zero = __float2bfloat16(0.f);
-    for (int e = tid; e < ROWS * D; e += TC_THREADS) {
-      const int r = e / D, c = e - r * D;
-      dst[r * LD + c] =
-          r < valid ? src[static_cast<long long>(row0 + r) * D + c] : zero;
-    }
-  }
+// One work tile: (128-query tile, q head, batch row) and the key tiles of
+// BK that can be live for some row of it. Work w runs q head fastest, then
+// batch row, then the q tiles from the last: the causal triangle's long
+// tiles first, the short ones in the tail.
+
+// The work tile of a block's round r: rounds of gridDim.x tiles, taken
+// left to right in even rounds and right to left in odd ones, so that a
+// block with a long tile in one round gets a short one in the next (the
+// tiles run from long to short); -1 past the last.
+__device__ __forceinline__ int fwd_round(int r, int n_work) {
+  const int w = r * gridDim.x +
+                ((r & 1) ? gridDim.x - 1 - blockIdx.x : blockIdx.x);
+  return w < n_work ? w : -1;
 }
+struct FwdWork {
+  int h, b, q0, k_begin, n_tiles;
+};
 
-// DP: D padded with zero columns to a multiple of 16.
-template <int DP, bool LSE>
-__global__ void __launch_bounds__(TC_THREADS)
-    flash_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                      const bf16* __restrict__ v, bf16* __restrict__ o,
-                      int Hq, int Hkv, int Lq, int Lk, int D, int causal,
-                      int has_window, int window, int has_softcap,
-                      float softcap, float scale, int vec,
-                      float* __restrict__ lse) {
-  constexpr int LD = DP + TC_PAD;
-  constexpr int KSTEPS = DP / 16;  // k-steps of q . k
-  constexpr int NT = DP / 8;       // 8-column tiles of the output
-  constexpr bool Q_IN_REGS = DP <= 128;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* qs = reinterpret_cast<bf16*>(smem_raw);  // TC_BQ x LD
-  bf16* ks = qs + TC_BQ * LD;                    // 2 buffers of BK x LD
-  bf16* vs = ks + 2 * BK * LD;                   // 2 buffers of BK x LD
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t4 = lane & 3;  // fragment row, column pair
-  // grid (Hq, B, q tiles), q tiles reversed: blocks are dispatched in
-  // order of their linear index, so every head's heaviest causal tiles
-  // start first and the light ones fill the tail
-  const int h = blockIdx.x;
-  const int b = blockIdx.y;
-  const int q0 = (gridDim.z - 1 - blockIdx.z) * TC_BQ;
-  const int hk = h / (Hq / Hkv);
+__device__ __forceinline__ FwdWork fwd_work(int w, int Hq, int B, int n_qt,
+                                            int Lq, int Lk, int causal,
+                                            int has_window, int window,
+                                            int BK) {
+  FwdWork r;
+  r.h = w % Hq;
+  r.b = (w / Hq) % B;
+  r.q0 = (n_qt - 1 - w / (Hq * B)) * TC_BQ;
   const int q_off = Lk - Lq;
-
-  const bf16* qb = q + (static_cast<long long>(b) * Hq + h) * Lq * D;
-  const bf16* kb = k + (static_cast<long long>(b) * Hkv + hk) * Lk * D;
-  const bf16* vb = v + (static_cast<long long>(b) * Hkv + hk) * Lk * D;
-  bf16* ob = o + (static_cast<long long>(b) * Hq + h) * Lq * D;
-
-  // zero the padding columns [D, DP) of every staged row once; the loads
-  // below write only columns < D
-  if (D < DP) {
-    const bf16 zero = __float2bfloat16(0.f);
-    for (int e = tid; e < (TC_BQ + 4 * BK) * (DP - D); e += TC_THREADS) {
-      const int r = e / (DP - D);
-      qs[r * LD + D + (e - r * (DP - D))] = zero;
-    }
-  }
-
-  // keys that can be live for some row of this tile
-  const int q_first = q0 + q_off;
-  const int q_last = min(q0 + TC_BQ, Lq) - 1 + q_off;
+  const int q_first = r.q0 + q_off;
+  const int q_last = min(r.q0 + TC_BQ, Lq) - 1 + q_off;
   int k_begin = 0, k_end = Lk;
   if (causal) k_end = min(Lk, q_last + 1);
   if (has_window) k_begin = max(0, q_first - window + 1);
-  k_begin = (k_begin / BK) * BK;
-  const int n_tiles = k_end > k_begin ? (k_end - k_begin + BK - 1) / BK : 0;
+  r.k_begin = (k_begin / BK) * BK;
+  r.n_tiles = k_end > r.k_begin ? (k_end - r.k_begin + BK - 1) / BK : 0;
+  return r;
+}
 
-  stage_rows<DP, TC_BQ>(qs, qb, q0, Lq - q0, D, vec);
-  cp_async_commit();
-  if (n_tiles > 0) {
-    stage_rows<DP, BK>(ks, kb, k_begin, Lk - k_begin, D, vec);
-    stage_rows<DP, BK>(vs, vb, k_begin, Lk - k_begin, D, vec);
+// DN <= DP: the columns computed, D rounded up to 16 (80) or to DP: S
+// takes DN / 16 k-steps and P . V is m64nDN. Persistent: gridDim.x blocks
+// (one a multiprocessor) walk the work tiles round by round (fwd_round);
+// the producer's K/V ring and the Q buffers run on across them, so a
+// tile's Q and first K/V tiles load while the last one computes and
+// stores its output.
+template <int DP, int DN, bool LSE>
+__global__ void __launch_bounds__(TC_THREADS, 1)
+    flash_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
+                      const __grid_constant__ CUtensorMap k_map,
+                      const __grid_constant__ CUtensorMap v_map,
+                      const __grid_constant__ CUtensorMap o_map,
+                      const bf16* __restrict__ q, const bf16* __restrict__ k,
+                      const bf16* __restrict__ v, bf16* __restrict__ o,
+                      int B, int Hq, int Hkv, int Lq, int Lk, int D,
+                      int causal, int has_window, int window,
+                      int has_softcap, float softcap, float scale, int tma,
+                      float* __restrict__ lse) {
+  constexpr int BK = FwdTile<DP>::BK, STAGES = FwdTile<DP>::STAGES;
+  constexpr int QBUF = FwdTile<DP>::QBUF, BOXES = DP / 64;
+  extern __shared__ unsigned char smem_raw[];
+  bf16* qs = reinterpret_cast<bf16*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t{1023});
+  bf16* ks = qs + QBUF * TC_BQ * DP;  // STAGES tiles of BK x DP
+  bf16* vs = ks + STAGES * BK * DP;   // STAGES tiles of BK x DP
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(vs + STAGES * BK * DP);
+  uint64_t* q_empty = q_full + QBUF;
+  uint64_t* k_full = q_empty + QBUF;
+  uint64_t* v_full = k_full + STAGES;
+  uint64_t* empty = v_full + STAGES;
+
+  const int tid = threadIdx.x, warp = warp_uniform(), lane = tid & 31;
+  const int n_qt = (Lq + TC_BQ - 1) / TC_BQ, n_work = n_qt * Hq * B;
+  const int q_off = Lk - Lq;
+
+  if (tid == 0) {
+    for (int i = 0; i < QBUF; ++i) {
+      mbar_init(q_full + i, 1);
+      mbar_init(q_empty + i, 2);  // one arrival per consumer warpgroup
+    }
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(k_full + s, 1);
+      mbar_init(v_full + s, 1);
+      mbar_init(empty + s, TC_CONSUMERS);
+    }
+    fence_mbar_init();
   }
-  cp_async_commit();
+  __syncthreads();
 
-  const int wrow = warp * 16;  // the warp's first row in the tile
-  // key positions of this lane's two rows, g and g + 8
-  const int qp0 = q0 + wrow + g + q_off;
-  const int qp1 = qp0 + 8;
-  // ldmatrix addresses: lane l gives row (l & 7) of matrix (l >> 3)
-  const int lrow = lane & 7, lmat = lane >> 3;
-  // A (q): matrices (rows 0-7 | 8-15) x (cols 0-7 | 8-15), rows first
-  const int a_row = wrow + ((lmat & 1) << 3) + lrow, a_col = (lmat >> 1) << 3;
-  // B of q.k^T (k rows are keys): (keys 0-7, d 0-7), (keys 0-7, d 8-15),
-  // (keys 8-15, d 0-7), (keys 8-15, d 8-15)
-  const int k_row = ((lmat >> 1) << 3) + lrow, k_col = (lmat & 1) << 3;
-  // B of p.v, transposed (v rows are keys): (keys 0-7, d 0-7),
-  // (keys 8-15, d 0-7), (keys 0-7, d 8-15), (keys 8-15, d 8-15)
-  const int v_row = ((lmat & 1) << 3) + lrow, v_col = (lmat >> 1) << 3;
-
-  uint32_t qf[Q_IN_REGS ? KSTEPS : 1][4];
-  float oacc[NT][4];
-#pragma unroll
-  for (int n = 0; n < NT; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) oacc[n][e] = 0.f;
-  float m_r[2] = {-INFINITY, -INFINITY};  // running max of S
-  float l_r[2] = {0.f, 0.f};  // this lane's part of the running sum
-  // Without softcap (and with scale > 0) the max commutes with the scale:
-  // S stays raw and exp2 takes s * sl - m * sl in one FMA. Else S is
-  // mapped to log2 units first and sl = 1.
-  const bool raw = !has_softcap && scale > 0.f;
-  const float sl = raw ? scale * LOG2E : 1.f;
-
-  for (int it = 0; it < n_tiles; ++it) {
-    const int kt = k_begin + it * BK;
-    const int buf = it & 1;
-    if (it + 1 < n_tiles) {
-      bf16* kn = ks + (buf ^ 1) * BK * LD;
-      bf16* vn = vs + (buf ^ 1) * BK * LD;
-      stage_rows<DP, BK>(kn, kb, kt + BK, Lk - kt - BK, D, vec);
-      stage_rows<DP, BK>(vn, vb, kt + BK, Lk - kt - BK, D, vec);
-      cp_async_commit();
-      cp_async_wait<1>();  // q and tile `it` have landed
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const bf16* kc = ks + buf * BK * LD;
-    const bf16* vc = vs + buf * BK * LD;
-    if (Q_IN_REGS && it == 0) {
-#pragma unroll
-      for (int kk = 0; kk < KSTEPS; ++kk)
-        ldmatrix_x4(qf[Q_IN_REGS ? kk : 0],
-                    smem_u32(qs + a_row * LD + kk * 16 + a_col));
-    }
-
-    // S = Q . K^T: 8 tiles of 8 keys, each 4 floats a lane (rows g, g + 8;
-    // keys 2 t4, 2 t4 + 1)
-    float s[8][4];
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < KSTEPS; ++kk) {
-      uint32_t a[4];
-      if (Q_IN_REGS) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) a[e] = qf[Q_IN_REGS ? kk : 0][e];
+  if (warp >= TC_CONSUMERS / 32) {
+    // the producer: per work tile its Q, then its K and V tiles into the
+    // ring; one lane issues TMA, or the warp stages
+    reg_dealloc<40>();
+    if (warp != TC_CONSUMERS / 32) return;  // the idle producer warps
+    if (tma && lane != 0) return;
+    int g = 0;  // key tiles loaded so far: the ring's position
+    for (int ti = 0, w; (w = fwd_round(ti, n_work)) >= 0; ++ti) {
+      const FwdWork t = fwd_work(w, Hq, B, n_qt, Lq, Lk, causal, has_window,
+                                 window, BK);
+      const int qb = ti % QBUF, hk = t.h / (Hq / Hkv);
+      bf16* qd = qs + qb * TC_BQ * DP;
+      if (ti >= QBUF) mbar_wait(q_empty + qb, (ti / QBUF - 1) & 1);
+      if (tma) {
+        mbar_expect_tx(q_full + qb, sizeof(bf16) * TC_BQ * DP);
+        for (int x = 0; x < BOXES; ++x)
+          tma_load_4d(qd + x * TC_BQ * 64, &q_map, q_full + qb, x * 64, t.q0,
+                      t.h, t.b);
       } else {
-        ldmatrix_x4(a, smem_u32(qs + a_row * LD + kk * 16 + a_col));
+        stage_tile<DP, TC_BQ>(
+            qd, q + (static_cast<long long>(t.b) * Hq + t.h) * Lq * D, t.q0,
+            Lq, D, lane);
+        __syncwarp();
+        if (lane == 0) mbar_arrive(q_full + qb);
       }
-#pragma unroll
-      for (int np = 0; np < 4; ++np) {
-        uint32_t bk[4];
-        ldmatrix_x4(bk,
-                    smem_u32(kc + (np * 16 + k_row) * LD + kk * 16 + k_col));
-        mma_bf16(s[2 * np], a, bk[0], bk[1]);
-        mma_bf16(s[2 * np + 1], a, bk[2], bk[3]);
-      }
-    }
-
-    if (!raw) {  // scale and softcap, in log2 units
-#pragma unroll
-      for (int n = 0; n < 8; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float x = s[n][e] * scale;
-          s[n][e] =
-              (has_softcap ? softcap * tanhf(x / softcap) : x) * LOG2E;
+      const long long kv = (static_cast<long long>(t.b) * Hkv + hk) * Lk * D;
+      for (int it = 0; it < t.n_tiles; ++it, ++g) {
+        const int s = g % STAGES, kt = t.k_begin + it * BK;
+        if (g >= STAGES) mbar_wait(empty + s, (g / STAGES - 1) & 1);
+        if (tma) {
+          mbar_expect_tx(k_full + s, sizeof(bf16) * BK * DP);
+          for (int x = 0; x < BOXES; ++x)
+            tma_load_4d(ks + (s * BOXES + x) * BK * 64, &k_map, k_full + s,
+                        x * 64, kt, hk, t.b);
+          mbar_expect_tx(v_full + s, sizeof(bf16) * BK * DP);
+          for (int x = 0; x < BOXES; ++x)
+            tma_load_4d(vs + (s * BOXES + x) * BK * 64, &v_map, v_full + s,
+                        x * 64, kt, hk, t.b);
+        } else {
+          stage_tile<DP, BK>(ks + s * BK * DP, k + kv, kt, Lk, D, lane);
+          __syncwarp();
+          if (lane == 0) mbar_arrive(k_full + s);
+          stage_tile<DP, BK>(vs + s * BK * DP, v + kv, kt, Lk, D, lane);
+          __syncwarp();
+          if (lane == 0) mbar_arrive(v_full + s);
         }
-    }
-    // masks, only on tiles that hold a dead (row, key) pair
-    const bool need_mask = kt + BK > Lk ||
-                           (causal && kt + BK - 1 > q_first) ||
-                           (has_window && kt <= q_last - window);
-    if (need_mask) {
-#pragma unroll
-      for (int n = 0; n < 8; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int kp = kt + n * 8 + 2 * t4 + (e & 1);
-          const int qp = e < 2 ? qp0 : qp1;
-          const bool live = kp < Lk && (!causal || kp <= qp) &&
-                            (!has_window || kp > qp - window);
-          if (!live) s[n][e] = -INFINITY;
-        }
-    }
-
-    // online softmax; a quad's 4 lanes hold one row
-    float mx[2] = {m_r[0], m_r[1]};
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      mx[0] = fmaxf(mx[0], fmaxf(s[n][0], s[n][1]));
-      mx[1] = fmaxf(mx[1], fmaxf(s[n][2], s[n][3]));
-    }
-    float mu[2], alpha[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      // a row with no live key so far keeps -inf; subtract 0 there so
-      // its p and alpha come out 0, not NaN
-      mu[r] = mx[r] == -INFINITY ? 0.f : mx[r] * sl;
-      alpha[r] = exp2_approx(m_r[r] * sl - mu[r]);
-      m_r[r] = mx[r];
-    }
-    // P in bf16 as the A operand of P . V: k-step j covers key tiles 2j
-    // (a0 row g, a1 row g + 8) and 2j + 1 (a2, a3)
-    uint32_t pa[4][4];
-    float rs[2] = {0.f, 0.f};
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      const float p0 = exp2_approx(fmaf(s[n][0], sl, -mu[0]));
-      const float p1 = exp2_approx(fmaf(s[n][1], sl, -mu[0]));
-      const float p2 = exp2_approx(fmaf(s[n][2], sl, -mu[1]));
-      const float p3 = exp2_approx(fmaf(s[n][3], sl, -mu[1]));
-      rs[0] += p0 + p1;
-      rs[1] += p2 + p3;
-      pa[n >> 1][(n & 1) * 2] = pack_bf16(p0, p1);
-      pa[n >> 1][(n & 1) * 2 + 1] = pack_bf16(p2, p3);
-    }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) l_r[r] = l_r[r] * alpha[r] + rs[r];
-#pragma unroll
-    for (int n = 0; n < NT; ++n) {
-      oacc[n][0] *= alpha[0];
-      oacc[n][1] *= alpha[0];
-      oacc[n][2] *= alpha[1];
-      oacc[n][3] *= alpha[1];
-    }
-
-    // O += P . V
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-#pragma unroll
-      for (int np = 0; np < NT / 2; ++np) {
-        uint32_t bv[4];
-        ldmatrix_x4_trans(
-            bv, smem_u32(vc + (kk * 16 + v_row) * LD + np * 16 + v_col));
-        mma_bf16(oacc[2 * np], pa[kk], bv[0], bv[1]);
-        mma_bf16(oacc[2 * np + 1], pa[kk], bv[2], bv[3]);
       }
-    }
-    __syncthreads();  // tile `it`'s buffers are free for tile it + 2
-  }
-  cp_async_wait<0>();  // q's copies, when no key tile was live
-
-  // finalize: O / l (0 -> 1) in bf16, staged in the warp's own q rows
-  float den[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    float l = l_r[r];
-    l += __shfl_xor_sync(0xffffffffu, l, 1);
-    l += __shfl_xor_sync(0xffffffffu, l, 2);
-    den[r] = l == 0.f ? 1.f : l;
-    // the row's log-sum-exp of the scaled (softcapped) logits: m_r is in
-    // raw units (times scale) or in log2 units (times ln 2)
-    const int qr = q0 + wrow + g + 8 * r;
-    if (LSE && t4 == 0 && qr < Lq)
-      lse[(static_cast<long long>(b) * Hq + h) * Lq + qr] =
-          l == 0.f ? LSE_DEAD
-                   : m_r[r] * (raw ? scale : 1.f / LOG2E) + logf(l);
-  }
-  __syncthreads();  // every thread's copies into q's rows have landed
-  bf16* os = qs + wrow * LD;
-#pragma unroll
-  for (int n = 0; n < NT; ++n) {
-    const int col = n * 8 + 2 * t4;
-    *reinterpret_cast<__nv_bfloat162*>(os + g * LD + col) =
-        __floats2bfloat162_rn(oacc[n][0] / den[0], oacc[n][1] / den[0]);
-    *reinterpret_cast<__nv_bfloat162*>(os + (g + 8) * LD + col) =
-        __floats2bfloat162_rn(oacc[n][2] / den[1], oacc[n][3] / den[1]);
-  }
-  __syncwarp();
-  const int rows = min(16, Lq - (q0 + wrow));
-  bf16* orow = ob + static_cast<long long>(q0 + wrow) * D;
-  if (vec) {
-    const int chunks = D / 8;
-    for (int e = lane; e < rows * chunks; e += 32) {
-      const int r = e / chunks, c = (e - r * chunks) * 8;
-      *reinterpret_cast<uint4*>(orow + static_cast<long long>(r) * D + c) =
-          *reinterpret_cast<const uint4*>(os + r * LD + c);
     }
   } else {
-    for (int e = lane; e < rows * D; e += 32) {
-      const int r = e / D, c = e - r * D;
-      orow[static_cast<long long>(r) * D + c] = os[r * LD + c];
+    // a consumer warpgroup: 64 query rows of each work tile, each warp 16
+    reg_alloc<232>();
+    const int wg = warp >> 2;
+    const int g4 = lane >> 2, t4 = lane & 3;
+    const int rr = (warp & 3) * 16 + g4;  // this lane's rows rr, rr + 8
+    // Without softcap (and with scale > 0) the max commutes with the
+    // scale: S stays raw and exp2 takes s * sl - m * sl in one FMA. Else S
+    // is mapped to log2 units first and sl = 1.
+    const bool raw = !has_softcap && scale > 0.f;
+    const float sl = raw ? scale * LOG2E : 1.f;
+    const float inv_cap = has_softcap ? 1.f / softcap : 0.f;
+    int g = 0;  // key tiles consumed so far: the ring's position
+    ping_start(wg);
+    for (int ti = 0, w; (w = fwd_round(ti, n_work)) >= 0; ++ti) {
+      const FwdWork t = fwd_work(w, Hq, B, n_qt, Lq, Lk, causal, has_window,
+                                 window, BK);
+      const int qb = ti % QBUF;
+      bf16* qt = qs + qb * TC_BQ * DP;  // the tile's Q, at its end its O
+      const int wq0 = t.q0 + wg * WG_ROWS;  // the warpgroup's first row
+      const int qp0 = wq0 + rr + q_off, qp1 = qp0 + 8;
+      const bool has_rows = wq0 < Lq;
+      const int wq_first = wq0 + q_off;
+      const int wq_last = min(wq0 + WG_ROWS, Lq) - 1 + q_off;
+
+      float oacc[DN / 2];
+#pragma unroll
+      for (int i = 0; i < DN / 2; ++i) oacc[i] = 0.f;
+      float m_r[2] = {-INFINITY, -INFINITY};  // running max of S
+      float l_r[2] = {0.f, 0.f};  // this lane's part of the running sum
+
+      mbar_wait(q_full + qb, (ti / QBUF) & 1);
+      for (int it = 0; it < t.n_tiles; ++it, ++g) {
+        const int s = g % STAGES, kt = t.k_begin + it * BK;
+        const uint32_t phase = (g / STAGES) & 1;
+        // whether any row of this warpgroup sees a key of the tile
+        const bool live = has_rows && !(causal && kt > wq_last) &&
+                          !(has_window && kt + BK - 1 <= wq_first - window);
+        uint32_t pa[BK / 16][4];
+        // S = Q . K^T: BK / 8 groups of 8 keys, 4 floats a lane each
+        float sacc[BK / 2];
+        mbar_wait(k_full + s, phase);
+        ping_wait(wg);
+        if (live) {
+          const bf16* kc = ks + s * BK * DP;
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < DN / 16; ++kk)
+            Wgmma<BK>::ss(
+                sacc,
+                desc_sw128(qt + (kk >> 2) * TC_BQ * 64 + wg * WG_ROWS * 64 +
+                               (kk & 3) * 16,
+                           16, 1024),
+                desc_sw128(kc + (kk >> 2) * BK * 64 + (kk & 3) * 16, 16,
+                           1024),
+                kk > 0);
+          wgmma_commit();
+        }
+        ping_pass(wg);
+        if (live) {
+          wgmma_wait<0>();
+          fence_regs(sacc);
+
+          if (!raw) {  // scale and softcap, in log2 units
+#pragma unroll
+            for (int i = 0; i < BK / 2; ++i) {
+              const float x = sacc[i] * scale;
+              const float c = LSE ? tanh_fast(x * inv_cap)
+                                  : tanh_approx(x * inv_cap);
+              sacc[i] = (has_softcap ? softcap * c : x) * LOG2E;
+            }
+          }
+          // masks, only on tiles that hold a dead (row, key) pair
+          const bool need_mask = kt + BK > Lk ||
+                                 (causal && kt + BK - 1 > wq_first) ||
+                                 (has_window && kt <= wq_last - window);
+          if (need_mask) {
+#pragma unroll
+            for (int i = 0; i < BK / 2; ++i) {
+              const int kp = kt + (i >> 2) * 8 + 2 * t4 + (i & 1);
+              const int qp = (i & 2) ? qp1 : qp0;
+              const bool ok = kp < Lk && (!causal || kp <= qp) &&
+                              (!has_window || kp > qp - window);
+              if (!ok) sacc[i] = -INFINITY;
+            }
+          }
+
+          // online softmax; a quad's 4 lanes hold one row
+          float mx[2] = {m_r[0], m_r[1]};
+#pragma unroll
+          for (int n = 0; n < BK / 8; ++n) {
+            mx[0] = fmaxf(mx[0], fmaxf(sacc[4 * n], sacc[4 * n + 1]));
+            mx[1] = fmaxf(mx[1], fmaxf(sacc[4 * n + 2], sacc[4 * n + 3]));
+          }
+          float mu[2], alpha[2];
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+            mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+            // a row with no live key so far keeps -inf; subtract 0 there
+            // so its p and alpha come out 0, not NaN
+            mu[r] = mx[r] == -INFINITY ? 0.f : mx[r] * sl;
+            alpha[r] = exp2_approx(m_r[r] * sl - mu[r]);
+            m_r[r] = mx[r];
+          }
+          // P in bf16 as the A operand of P . V: k-step j covers key
+          // groups 2j (a0 row g, a1 row g + 8) and 2j + 1 (a2, a3)
+          float rs[2] = {0.f, 0.f};
+#pragma unroll
+          for (int n = 0; n < BK / 8; ++n) {
+            const float p0 = exp2_approx(fmaf(sacc[4 * n], sl, -mu[0]));
+            const float p1 = exp2_approx(fmaf(sacc[4 * n + 1], sl, -mu[0]));
+            const float p2 = exp2_approx(fmaf(sacc[4 * n + 2], sl, -mu[1]));
+            const float p3 = exp2_approx(fmaf(sacc[4 * n + 3], sl, -mu[1]));
+            rs[0] += p0 + p1;
+            rs[1] += p2 + p3;
+            pa[n >> 1][(n & 1) * 2] = pack_bf16(p0, p1);
+            pa[n >> 1][(n & 1) * 2 + 1] = pack_bf16(p2, p3);
+          }
+#pragma unroll
+          for (int r = 0; r < 2; ++r) l_r[r] = l_r[r] * alpha[r] + rs[r];
+#pragma unroll
+          for (int n = 0; n < DN / 8; ++n) {
+            oacc[4 * n] *= alpha[0];
+            oacc[4 * n + 1] *= alpha[0];
+            oacc[4 * n + 2] *= alpha[1];
+            oacc[4 * n + 3] *= alpha[1];
+          }
+        }
+        mbar_wait(v_full + s, phase);
+        if (live) {
+          // O += P . V, V MN-major: a k-step is 16 key rows, 2048 bytes
+          const bf16* vc = vs + s * BK * DP;
+          fence_regs(oacc);
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < BK / 16; ++kk)
+            Wgmma<DN>::rs(oacc, pa[kk],
+                          desc_sw128(vc + kk * 16 * 64, BK * 128, 1024), 1);
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_regs(oacc);
+          fence_regs(pa);
+        }
+        mbar_arrive(empty + s);
+      }
+
+      // finalize: O / l (0 -> 1)
+      float den[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float l = l_r[r];
+        l += __shfl_xor_sync(0xffffffffu, l, 1);
+        l += __shfl_xor_sync(0xffffffffu, l, 2);
+        den[r] = l == 0.f ? 1.f : l;
+        // the row's log-sum-exp of the scaled (softcapped) logits: m_r is
+        // in raw units (times scale) or in log2 units (times ln 2)
+        const int qr = wq0 + rr + 8 * r;
+        if (LSE && t4 == 0 && qr < Lq)
+          lse[(static_cast<long long>(t.b) * Hq + t.h) * Lq + qr] =
+              l == 0.f ? LSE_DEAD
+                       : m_r[r] * (raw ? scale : 1.f / LOG2E) + logf(l);
+      }
+      if (tma) {
+        // bf16 into the warpgroup's own rows of the tile's Q buffer (its
+        // last reads of them are done), swizzled as TMA stores them: row
+        // rr's 16-byte chunk c at c ^ (rr % 8)
+        bf16* os = qt + wg * WG_ROWS * 64;
+#pragma unroll
+        for (int n = 0; n < DN / 8; ++n) {
+          bf16* box = os + (n >> 3) * TC_BQ * 64;
+          const int c = (((n & 7) ^ (rr & 7)) << 3) + 2 * t4;
+          *reinterpret_cast<__nv_bfloat162*>(box + rr * 64 + c) =
+              __floats2bfloat162_rn(oacc[4 * n] / den[0],
+                                    oacc[4 * n + 1] / den[0]);
+          *reinterpret_cast<__nv_bfloat162*>(box + (rr + 8) * 64 + c) =
+              __floats2bfloat162_rn(oacc[4 * n + 2] / den[1],
+                                    oacc[4 * n + 3] / den[1]);
+        }
+        fence_proxy_async();
+        named_sync(1 + wg, 128);
+        if ((tid & 127) == 0) {
+          if (has_rows) {
+            for (int x = 0; x < BOXES; ++x)
+              tma_store_4d(&o_map, os + x * TC_BQ * 64, x * 64, wq0, t.h,
+                           t.b);
+            tma_store_wait();
+          }
+          mbar_arrive(q_empty + qb);  // the store has read the buffer
+        }
+      } else {
+        bf16* ob = o + (static_cast<long long>(t.b) * Hq + t.h) * Lq * D;
+#pragma unroll
+        for (int i = 0; i < DN / 2; ++i) {
+          const int row = wq0 + rr + 8 * ((i >> 1) & 1);
+          const int col = (i >> 2) * 8 + 2 * t4 + (i & 1);
+          if (row < Lq && col < D)
+            ob[static_cast<long long>(row) * D + col] =
+                __float2bfloat16(oacc[i] / den[(i >> 1) & 1]);
+        }
+        named_sync(1 + wg, 128);  // every thread's reads of Q are done
+        if ((tid & 127) == 0) mbar_arrive(q_empty + qb);
+      }
     }
+    ping_end(wg);
   }
 }
 
-template <int DP>
+template <int DP, int DN>
 int launch_bf16(const void* q, const void* k, const void* v, void* o,
-                float* lse, int B,
-                int Hq, int Hkv, int Lq, int Lk, int D, int causal,
-                int has_window, int window, int has_softcap, float softcap,
-                float scale, cudaStream_t stream) {
-  constexpr size_t smem =
-      sizeof(bf16) * static_cast<size_t>(TC_BQ + 4 * BK) * (DP + TC_PAD);
-  const auto kernel = lse != nullptr ? flash_bf16_kernel<DP, true>
-                                     : flash_bf16_kernel<DP, false>;
+                float* lse, int B, int Hq, int Hkv, int Lq, int Lk, int D,
+                int causal, int has_window, int window, int has_softcap,
+                float softcap, float scale, cudaStream_t stream) {
+  constexpr size_t smem = FwdTile<DP>::SMEM;
+  const auto kernel = lse != nullptr ? flash_bf16_kernel<DP, DN, true>
+                                     : flash_bf16_kernel<DP, DN, false>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const auto aligned = [](const void* p) {
-    return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
-  };
-  const int vec = D % 8 == 0 && aligned(q) && aligned(k) && aligned(v) &&
-                  aligned(o);
-  const dim3 grid(Hq, B, (Lq + TC_BQ - 1) / TC_BQ);
-  kernel<<<grid, TC_THREADS, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(o), Hq, Hkv, Lq, Lk, D,
-      causal, has_window, window, has_softcap, softcap, scale, vec, lse);
+  const int tma = tma_ok(q, D) && tma_ok(k, D) && tma_ok(v, D) &&
+                  tma_ok(o, D);
+  CUtensorMap maps[4] = {};  // unused (zero) on the staging path
+  if (tma) {
+    int bad = make_map(&maps[0], q, B, Hq, Lq, D, TC_BQ);
+    bad = bad ? bad : make_map(&maps[1], k, B, Hkv, Lk, D, FwdTile<DP>::BK);
+    bad = bad ? bad : make_map(&maps[2], v, B, Hkv, Lk, D, FwdTile<DP>::BK);
+    bad = bad ? bad : make_map(&maps[3], o, B, Hq, Lq, D, WG_ROWS);
+    if (bad) return bad;
+  }
+  // persistent: at most one block a multiprocessor
+  const long long work =
+      static_cast<long long>((Lq + TC_BQ - 1) / TC_BQ) * Hq * B;
+  const int blocks = static_cast<int>(
+      work < multiprocessors() ? work : multiprocessors());
+  kernel<<<blocks, TC_THREADS, smem, stream>>>(
+      maps[0], maps[1], maps[2], maps[3], static_cast<const bf16*>(q),
+      static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<bf16*>(o), B, Hq, Hkv, Lq, Lk, D, causal, has_window,
+      window, has_softcap, softcap, scale, tma, lse);
   return static_cast<int>(cudaGetLastError());
 }
 
-// the padded widths instantiated: D goes to the first that holds it
+// D goes to the first (boxes, computed columns) that holds it: zamba2's
+// D = 80 loads two boxes and computes 80 columns, not 128
 int dispatch_bf16(const void* q, const void* k, const void* v, void* o,
-                  float* lse, int B, int Hq, int Hkv, int Lq, int Lk, int D, int causal,
-                  int has_window, int window, int has_softcap, float softcap,
-                  float scale, cudaStream_t s) {
-#define REPRO_FLASH_BF16(DP)                                                  \
-  if (D <= DP)                                                              \
-    return launch_bf16<DP>(q, k, v, o, lse, B, Hq, Hkv, Lq, Lk, D, causal,  \
-                           has_window, window, has_softcap, softcap, scale, \
-                           s);
-  REPRO_FLASH_BF16(32)
-  REPRO_FLASH_BF16(64)
-  REPRO_FLASH_BF16(80)
-  REPRO_FLASH_BF16(96)
-  REPRO_FLASH_BF16(128)
-  REPRO_FLASH_BF16(192)
-  REPRO_FLASH_BF16(256)
+                  float* lse, int B, int Hq, int Hkv, int Lq, int Lk, int D,
+                  int causal, int has_window, int window, int has_softcap,
+                  float softcap, float scale, cudaStream_t s) {
+#define REPRO_FLASH_BF16(DP, DN)                                            \
+  if (D <= DN)                                                              \
+    return launch_bf16<DP, DN>(q, k, v, o, lse, B, Hq, Hkv, Lq, Lk, D,      \
+                               causal, has_window, window, has_softcap,     \
+                               softcap, scale, s);
+  REPRO_FLASH_BF16(64, 64)
+  REPRO_FLASH_BF16(128, 80)
+  REPRO_FLASH_BF16(128, 128)
+  REPRO_FLASH_BF16(256, 256)
 #undef REPRO_FLASH_BF16
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -677,4 +776,17 @@ extern "C" int repro_flash_attention(const void* q, const void* k,
                          has_window, window, has_softcap, softcap, scale, s);
   return dispatch_f32(q, k, v, o, l, B, Hq, Hkv, Lq, Lk, D, causal,
                       has_window, window, has_softcap, softcap, scale, s);
+}
+
+// The host time of encoding one tensor map of a bf16 (B, H, L, D) tensor
+// at `p`, in microseconds, the mean of `iters` encodings (a bf16 forward
+// call encodes four). Negative if an encoding failed.
+extern "C" double repro_flash_tensor_map_us(const void* p, int B, int H,
+                                            int L, int D, int iters) {
+  CUtensorMap map;
+  const auto t0 = std::chrono::steady_clock::now();
+  for (int i = 0; i < iters; ++i)
+    if (make_map(&map, p, B, H, L, D, 64)) return -1.0;
+  const auto t1 = std::chrono::steady_clock::now();
+  return std::chrono::duration<double, std::micro>(t1 - t0).count() / iters;
 }

@@ -4,8 +4,9 @@ their plain versions.
 Port of the Pallas TPU kernel `flash_attention`
 (src/repro/kernels/flash_attention.py): GQA, end-aligned queries, causal
 and sliding-window masks, tanh softcap, float32 sums, and 0 for a row with
-no live key. bf16 runs on the tensor cores (`mma.sync`), float32 on the
-CUDA cores, to keep the float32 tolerance of 2e-5. The CUDA source,
+no live key. bf16 runs on the tensor cores (`wgmma`, fed by TMA loads
+from a producer warpgroup beside two consumer warpgroups), float32 on
+the CUDA cores, to keep the float32 tolerance of 2e-5. The CUDA source,
 `csrc/flash_attention.cu`, says what bounds it on an H100 and how its
 design answers that. Unlike the Pallas kernel it
 takes ragged lengths: nothing has to divide a tile, so `block_q` and
@@ -170,6 +171,16 @@ def _backward_entry():
     return fn
 
 
+@functools.lru_cache(maxsize=None)
+def _backward_work():
+    """Floats of float32 workspace the backward needs at a shape: the
+    rows' D, then the dK/dV partials when the kernel splits a GQA group."""
+    fn = build.load("flash_attention_bwd").repro_flash_attention_bwd_work
+    fn.argtypes = [ctypes.c_int] * 7
+    fn.restype = ctypes.c_longlong
+    return fn
+
+
 
 def _mask_args(causal, window, softcap):
     return (int(causal), int(window is not None),
@@ -284,8 +295,9 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
     Lq) float32 as the training forward wrote them, dout the gradient of
     out (contiguous). Returns (dq, dk, dv) in q's dtype. On the card: one
     call of `csrc/flash_attention_bwd.cu` (three launches: D = rowsum(dO
-    O), dK and dV, dQ), counted once in `flash_attention_backward.launches`;
-    on the CPU, `flash_attention_backward_plain`."""
+    O), dK and dV, dQ; four when dK and dV are summed from partials),
+    counted once in `flash_attention_backward.launches`; on the CPU,
+    `flash_attention_backward_plain`."""
     _check(q, k, v)
     for name, t in (("out", out), ("dout", dout)):
         if t.shape != q.shape or t.dtype != q.dtype or \
@@ -311,11 +323,12 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     if q.numel() == 0 or k.numel() == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
-    delta = lse.new_empty(lse.shape)
+    work = lse.new_empty(_backward_work()(_DTYPES[q.dtype], b, hq, hkv, lq,
+                                          lk, d))
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _backward_entry()(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+        dout.data_ptr(), lse.data_ptr(), work.data_ptr(), dq.data_ptr(),
         dk.data_ptr(), dv.data_ptr(), _DTYPES[q.dtype], b, hq, hkv, lq, lk,
         d, *_mask_args(causal, window, softcap), float(scale), stream)
     if err:

@@ -19,6 +19,7 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from repro_torch.configs import base
 from repro_torch.configs.base import ModelConfig
@@ -188,10 +189,17 @@ def _moe_ffn(p, x, cfg: ModelConfig):
     wr = top_w.reshape(rows, g, k)
     if rows > MOE_CHUNK and rows % MOE_CHUNK == 0:
         # chunks of MOE_CHUNK groups one after another bound the live
-        # (E*cap, d) / (E, cap, d_ff) buffers, as the reference's lax.map
-        y = torch.cat([_dispatch(hr[i:i + MOE_CHUNK], er[i:i + MOE_CHUNK],
-                                 wr[i:i + MOE_CHUNK], we, e, k, cap)
-                       for i in range(0, rows, MOE_CHUNK)])
+        # (E*cap, d) / (E, cap, d_ff) buffers, as the reference's lax.map;
+        # under grad each chunk is recomputed in the backward, as the
+        # reference's jax.checkpoint, so no chunk's buffers are saved
+        def chunk(i):
+            args = (hr[i:i + MOE_CHUNK], er[i:i + MOE_CHUNK],
+                    wr[i:i + MOE_CHUNK], we, e, k, cap)
+            if torch.is_grad_enabled():
+                return torch.utils.checkpoint.checkpoint(
+                    _dispatch, *args, use_reentrant=False)
+            return _dispatch(*args)
+        y = torch.cat([chunk(i) for i in range(0, rows, MOE_CHUNK)])
     else:
         y = _dispatch(hr, er, wr, we, e, k, cap)
     y = y.reshape(bsz, s, d)

@@ -198,7 +198,51 @@ FLASH_CASES = [
     (2, 4, 2, 256, 128, 32, True, None, None),
     (1, 2, 1, 256, 128, 64, True, 64, None),
     (1, 2, 2, 256, 128, 32, False, 32, None),
+    # the bf16 kernel's tensor-map edges (chip_smoke.HOPPER_ATTN): D = 80
+    # and 256 with L not a multiple of 64 or 128, one query, D = 36 (the
+    # staging path), window 0
+    (2, 8, 2, 200, 333, 80, True, None, None),
+    (1, 4, 1, 70, 150, 256, True, 100, 50.0),
+    (3, 4, 4, 1, 77, 80, False, None, None),
+    (1, 4, 2, 90, 130, 36, True, None, None),
+    (2, 4, 2, 96, 96, 64, True, 0, None),
 ]
+
+
+def _views(tensors, offset):
+    """Copies of `tensors` as contiguous views `offset` elements into
+    larger buffers."""
+    out = []
+    for t in tensors:
+        buf = torch.empty(t.numel() + offset, dtype=t.dtype, device=t.device)
+        out.append(buf[offset:].view(t.shape))
+        out[-1].copy_(t)
+    return out
+
+
+@pytest.mark.parametrize("offset", [8, 3])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_flash_attention_kernel_on_offset_views_matches_plain(cuda, dtype,
+                                                              offset):
+    """q, k, v as views whose bases lie 8 elements (16 bytes: TMA's rule
+    holds) or 3 (it fails: the bf16 kernel's staging path) into larger
+    buffers, against the plain version, forward and backward."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_backward, flash_attention_backward_plain,
+        flash_attention_lse)
+    case = (2, 8, 4, 200, 200, 128, True, None, None)
+    q, k, v, dout = _views(_flash_args(case, dtype, cuda), offset)
+    out = flash_attention(q, k, v, causal=True)
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(
+        out.float(), flash_attention_plain(q, k, v, causal=True).float(),
+        atol=tol, rtol=tol)
+    o, lse = flash_attention_lse(q, k, v, causal=True)
+    got = flash_attention_backward(q, k, v, o, lse, dout, causal=True)
+    want = flash_attention_backward_plain(q, k, v, o, lse, dout, causal=True)
+    for name, a, b_ in zip("qkv", got, want):
+        _assert_grad_close(a, b_, dtype, f"d{name}")
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
@@ -706,6 +750,9 @@ def test_flash_attention_backward_kernel_matches_plain(cuda, case, dtype):
     want = flash_attention_backward_plain(q, k, v, out, lse, dout, **kw)
     for name, a, b_ in zip("qkv", got, want):
         _assert_grad_close(a, b_, dtype, f"d{name}")
+    # deterministic: no atomics, a second call gives the same bits
+    again = flash_attention_backward(q, k, v, out, lse, dout, **kw)
+    assert all(torch.equal(a, b_) for a, b_ in zip(got, again))
 
 
 @pytest.mark.parametrize("case", [(2, 12, 2, 128, 128, 128, True, None,

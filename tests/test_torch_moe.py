@@ -169,3 +169,73 @@ def test_ring_buffer_decode_past_the_window():
     lp.check_prefill(pair, expect_leaves=4)
     lp.check_decode_steps(pair)
     lp.check_teacher_forcing(pair)
+
+
+def _moe_grads(p, x, cfg, r):
+    """loss = sum((x + y) r) + aux of `_moe_ffn` under autograd: (loss,
+    the gradients of every parameter leaf the MoE FFN reads and of x, the
+    bytes autograd saved for the backward)."""
+    tree = _port_tree(p)
+    leaves = [(n, tree[n]) for n in ("moe_norm", "router")]
+    leaves += [(f"experts/{m}", t) for m, t in sorted(tree["experts"].items())]
+    for _, t in leaves:
+        t.requires_grad_(True)
+    xt = torch.from_numpy(x).requires_grad_(True)
+    saved = []
+
+    def pack(t):
+        saved.append(t.numel() * t.element_size())
+        return t
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        out, aux = blocks._moe_ffn(tree, xt, cfg)
+        loss = (out * torch.from_numpy(r)).sum() + aux
+    grads = torch.autograd.grad(loss, [t for _, t in leaves] + [xt])
+    return loss.detach(), dict(zip([n for n, _ in leaves] + ["x"], grads)), \
+        sum(saved)
+
+
+def test_chunked_moe_recomputes_each_chunk_under_grad(monkeypatch):
+    """The chunked dispatch (16 dispatch groups, chunks of 8) under grad
+    wraps each chunk in a non-reentrant checkpoint, as the reference wraps
+    it in jax.checkpoint: autograd saves fewer bytes, the loss and every
+    gradient are bit-equal to the unwrapped dispatch, and the gradients
+    agree with jax.grad of the reference (tests/test_torch_backward.py's
+    bar: 1e-3 of each leaf's largest entry)."""
+    factor, shards, shape = FFN_CASES["chunked"]
+    cfg = dataclasses.replace(
+        lp.reduced(get_config, "mixtral-8x7b"), moe_capacity_factor=factor,
+        moe_ep_shards=shards)
+    assert shape[0] * shape[1] // min(shape[1], blocks.MOE_GROUP) \
+        > blocks.MOE_CHUNK
+    p, x = _moe_inputs(cfg, shape, seed=12)
+    r = np.random.default_rng(13).standard_normal(
+        x.shape, dtype=np.float32)
+    loss, grads, saved = _moe_grads(p, x, cfg, r)
+
+    with monkeypatch.context() as m:
+        m.setattr(torch.utils.checkpoint, "checkpoint",
+                  lambda fn, *args, use_reentrant: fn(*args))
+        loss_u, grads_u, saved_u = _moe_grads(p, x, cfg, r)
+    assert saved < saved_u
+    assert torch.equal(loss, loss_u)
+    assert sorted(grads) == sorted(grads_u)
+    for name, g in grads.items():
+        assert torch.equal(g, grads_u[name]), name
+
+    def ref_loss(p_, x_):
+        out, aux = ref_blocks._moe_ffn(p_, x_, _ref_cfg(cfg))
+        return jnp.sum(out * jnp.asarray(r)) + aux
+    ref_p = jax.tree_util.tree_map(jnp.asarray, p)
+    want_loss, (gp, gx) = jax.value_and_grad(ref_loss, argnums=(0, 1))(
+        ref_p, jnp.asarray(x))
+    np.testing.assert_allclose(float(loss), float(want_loss), rtol=1e-5)
+    want = {"x": np.asarray(gx)}
+    want.update({n: np.asarray(gp[n]) for n in ("moe_norm", "router")})
+    want.update({f"experts/{m}": np.asarray(w)
+                 for m, w in gp["experts"].items()})
+    assert sorted(want) == sorted(grads)
+    for name, g in grads.items():
+        w = want[name]
+        np.testing.assert_allclose(g.numpy(), w, rtol=0,
+                                   atol=1e-3 * max(np.abs(w).max(), 1e-6),
+                                   err_msg=name)

@@ -6,24 +6,34 @@ process per checkout:
     it) and `lstm_cell` kernels at chip_smoke.py's ICU shapes, timed by
     CUDA-graph replay (the device time without the host's launch cost),
     median and range of REPEATS measurements;
-  * a hash of each float32 LSTM kernel's SASS (`cuobjdump -sass`, the
-    instructions without their addresses and encodings), so two checkouts
-    can be seen to run the same machine code, and of the forward flash,
-    ssm_scan and mlstm_chunk kernels' (what serving launches);
   * the serving forward of `flash_attention` (no autograd) in bf16 at
-    zamba2's and qwen2-1.5b's prefill shapes, by CUDA-graph replay;
+    every prefill shape of chip_smoke.py's LLM_ATTN and at zamba2's, and
+    `flash_attention_backward` in bf16 at qwen2-1.5b's training shape, by
+    CUDA-graph replay, beside scaled_dot_product_attention where it
+    computes the same function (its backward by CUDA events: autograd
+    cannot be captured), and each shape's bound;
+  * a hash of the SASS of every kernel in every built library
+    (`cuobjdump -sass`, the instructions without their addresses and
+    encodings), keyed by mangled name, and of a second build of each
+    source; after the runs, the kernels whose hash differs between trees
+    (and which of them also differ between two builds of one tree: nvcc
+    does not reproduce every kernel's SASS) or that only some trees have,
+    so two checkouts can be seen to run the same machine code where
+    nothing was meant to change;
   * with --flash: the bf16 `flash_attention` kernel against its plain
     version at every shape of chip_smoke.py's phase 3 (same inputs, same
     seeds), under both of its bars: ATTN_TOL's allclose and
     FLASH_BF16_ROW_REL on every output row.
 
-    python3 tools/kernel_ab.py [--flash] TREE [TREE ...]
+    python3 tools/kernel_ab.py [--flash] [--out FILE] TREE [TREE ...]
 
 Each TREE is the root of a checkout: its `src/repro_torch` is imported and
 its kernels built there. Trees run in the order given, so `PARENT CHANGE
 CHANGE PARENT` alternates two versions within one call. Prints the card's
-name and power limit, one line per measurement, and last one JSON object
-with every run's results. Exits non-zero without a CUDA device.
+name and power limit, one line per measurement, the SASS verdict, and last
+one JSON object with every run's timings; with --out, every run's whole
+record (the SASS hashes too) goes to FILE as JSON. Exits non-zero without
+a CUDA device.
 """
 import argparse
 import json
@@ -35,54 +45,109 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parent.parent
 REPEATS = 5
-# float32 LSTM kernels, by their mangled names: before the bf16 inputs the
-# sequence kernel was templated on HR alone and the step kernel was not a
-# template; after, the sequence kernel's float instance is <HR, float>, and
-# since the training forward <HR, float, false> (the serving instance; the
-# training instance <HR, float, true> is left out), and the step kernel's
-# all-float32 instance is mask 0
-SEQ_F32 = re.compile(r"lstm_sequence_kernelILi(\d+)Ef?(?:Lb0E)?E")
-CELL_F32 = re.compile(r"lstm_cell_kernel(?:ILi0EE|E)")
-# the forward flash kernels' serving instances (<width> before the training
-# forward, <width, false> after it)
-FLASH_FWD = re.compile(r"flash_(bf16|f32)_kernelILi(\d+)E(?:Lb0E)?E")
-# the forward ssm_scan and mlstm_chunk kernels (both dtypes, every width)
-SCAN_FWD = re.compile(r"(ssm|mlstm)_(bf16|f32)_kernel(?:ILi(\d+)EE)?")
-# bf16 flash forward timed at the serving paths' prefill shapes
-FLASH_TIMED = {"zamba2": "ZAMBA_ATTN", "qwen2-1.5b": "qwen2-1.5b"}
+LIBRARIES = ("lstm_cell", "flash_attention", "flash_attention_bwd",
+             "ssm_scan", "ssm_scan_bwd", "mlstm_chunk", "mlstm_chunk_bwd")
 
 
-def f32_sass(build):
-    """{kernel: (instructions, sha256 of their text)} of the float32 LSTM
-    kernels in this checkout's built lstm_cell library and of the forward
-    kernels in its flash_attention, ssm_scan and mlstm_chunk libraries."""
+def all_sass(build, libs=None):
+    """{mangled kernel name: (instructions, sha256 of their text)} of every
+    kernel in this checkout's built libraries (or in `libs`)."""
     import hashlib
     cuobjdump = Path(build._nvcc()).with_name("cuobjdump")
-    libs = build.build("lstm_cell", "flash_attention", "ssm_scan",
-                       "mlstm_chunk")
+    libs = libs or build.build(*LIBRARIES)
     sass = "".join(subprocess.run([str(cuobjdump), "-sass", str(lib)],
                                   capture_output=True, text=True, check=True,
                                   timeout=300).stdout
                    for lib in libs.values())
     out = {}
     for part in sass.split("Function : ")[1:]:
-        mangled = part.split()[0]
-        seq, cell = SEQ_F32.search(mangled), CELL_F32.search(mangled)
-        flash, scan = FLASH_FWD.search(mangled), SCAN_FWD.search(mangled)
-        if seq:
-            key = f"lstm_sequence_kernel<{seq.group(1)}> float32"
-        elif cell:
-            key = "lstm_cell_kernel float32"
-        elif flash:
-            key = f"flash_{flash.group(1)}_kernel<{flash.group(2)}>"
-        elif scan:
-            key = f"{scan.group(1)}_{scan.group(2)}_kernel" + (
-                f"<{scan.group(3)}>" if scan.group(3) else "")
-        else:
-            continue
         ins = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(.*?)\s*;", part)
-        out[key] = (len(ins),
-                    hashlib.sha256("\n".join(ins).encode()).hexdigest()[:16])
+        # an anonymous namespace's mangled name carries a hash of the
+        # source's path, which differs between checkouts
+        name = re.sub(r"^_ZN\d+_GLOBAL__N__\w+?_cu_[0-9a-f]{8}",
+                      "_ZN_anon_", part.split()[0])
+        out[name] = (
+            len(ins), hashlib.sha256("\n".join(ins).encode()).hexdigest()[:16])
+    return out
+
+
+def rebuilt_sass(build):
+    """all_sass of a second build of every source (the same flags, all
+    nvcc processes at once, into _build/rebuild/): nvcc does not give every
+    kernel the same SASS on every build of one source, so a kernel whose
+    hash differs between trees is only a changed kernel if its two builds
+    in one tree agree."""
+    out = build.BUILD_DIR / "rebuild"
+    out.mkdir(parents=True, exist_ok=True)
+    libs = {name: out / f"lib{name}.so" for name in LIBRARIES}
+    procs = [subprocess.Popen([build._nvcc(), *build.NVCC_FLAGS, "-o",
+                               str(lib), str(build.CSRC / f"{name}.cu")],
+                              stdout=subprocess.DEVNULL,
+                              stderr=subprocess.DEVNULL)
+             for name, lib in libs.items()]
+    if any(p.wait(timeout=900) for p in procs):
+        raise RuntimeError("kernel_ab: a second build failed")
+    return all_sass(build, libs)
+
+
+def timed(torch, cs, fn, per_graph):
+    ms = [cs.graph_ms(torch, fn, per_graph=per_graph) for _ in range(REPEATS)]
+    return {"median": statistics.median(ms), "min": min(ms), "max": max(ms)}
+
+
+def flash_times(torch, cs, cuda, card, name):
+    """Graph-replayed bf16 flash forward at ZAMBA_ATTN and every LLM_ATTN
+    shape, the backward at QWEN_TRAIN_ATTN, SDPA where it computes the
+    same function (no softcap, no window that bites), and the bounds."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention, flash_attention_backward, flash_attention_lse)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    out = {}
+    for label, case in [("zamba2", cs.ZAMBA_ATTN)] + [
+            (k, c) for k, (c, _) in cs.LLM_ATTN.items()]:
+        b, hq, hkv, lq, lk, d, causal, window, softcap = case
+        q, kk, v = cs.flash_inputs(torch, case, torch.bfloat16, cuda,
+                                   seed=200)
+        kw = cs.flash_kwargs(case)
+        per = 5 if lq * lk > 4096 * 4096 else 20
+        row = {"case": list(case),
+               "kernel": timed(torch, cs, lambda: flash_attention(
+                   q, kk, v, **kw), per),
+               "bound_ms": max(cs.flash_bound(case, 2, cs.BF16_FLOPS))}
+        if softcap is None and (window is None or window >= lk):
+            gqa = {"enable_gqa": True} if hq != hkv else {}
+            row["sdpa"] = timed(torch, cs, lambda: sdpa(
+                q, kk, v, is_causal=causal, **gqa), per)
+        out[label] = row
+        sd = (f", SDPA median {row['sdpa']['median']:.6f} ms"
+              if "sdpa" in row else ", SDPA none")
+        print(f"[{card}] {name} flash_attention bf16 {label} {case}: median "
+              f"{row['kernel']['median']:.6f} ms (range "
+              f"{row['kernel']['min']:.6f}-{row['kernel']['max']:.6f}, "
+              f"{REPEATS} measurements){sd}, bound {row['bound_ms']:.6f} ms",
+              flush=True)
+        del q, kk, v
+    case = cs.QWEN_TRAIN_ATTN
+    q, kk, v = cs.flash_inputs(torch, case, torch.bfloat16, cuda, seed=1200)
+    dout = cs.flash_inputs(torch, case, torch.bfloat16, cuda, seed=1201)[0]
+    kw = cs.flash_kwargs(case)
+    o, lse = flash_attention_lse(q, kk, v, **kw)
+    ql, kl, vl = (t.clone().requires_grad_() for t in (q, kk, v))
+    o_lib = sdpa(ql, kl, vl, is_causal=True, enable_gqa=True)
+    row = {"case": list(case),
+           "kernel": timed(torch, cs, lambda: flash_attention_backward(
+               q, kk, v, o, lse, dout, **kw), 5),
+           # autograd's engine cannot be captured in a CUDA graph: SDPA's
+           # backward (one fused call) by CUDA events instead
+           "sdpa": {"median": cs.event_ms(torch, lambda: torch.autograd.grad(
+               o_lib, (ql, kl, vl), dout, retain_graph=True), 20, warmup=3)},
+           "bound_ms": max(cs.flash_bwd_bound(case))}
+    out["qwen2-1.5b training backward"] = row
+    print(f"[{card}] {name} flash_attention_backward bf16 {case}: median "
+          f"{row['kernel']['median']:.6f} ms (range "
+          f"{row['kernel']['min']:.6f}-{row['kernel']['max']:.6f}), SDPA "
+          f"backward {row['sdpa']['median']:.6f} ms (events), bound "
+          f"{row['bound_ms']:.6f} ms", flush=True)
     return out
 
 
@@ -94,7 +159,8 @@ def flash_rows(torch, cs, flash_attention, flash_attention_plain, cuda):
     for k, case in enumerate(cs.ATTN_CASES + [cs.ZAMBA_ATTN]
                              + cs.RAGGED_ATTN + cs.PADDED_ATTN
                              + cs.LQ_GT_LK_ATTN
-                             + [c for c, _ in cs.LLM_ATTN.values()]):
+                             + [c for c, _ in cs.LLM_ATTN.values()]
+                             + cs.HOPPER_ATTN):
         q, kk, v = cs.flash_inputs(torch, case, torch.bfloat16, cuda, seed=k)
         out = flash_attention(q, kk, v, **cs.flash_kwargs(case)).float()
         want = flash_attention_plain(q, kk, v, **cs.flash_kwargs(case))
@@ -143,24 +209,15 @@ def run_one(tree: Path, flash: bool) -> dict:
             print(f"[{res['card']}] {tree.name} {key} {shape}: median "
                   f"{statistics.median(ms):.6f} ms (range {min(ms):.6f}-"
                   f"{max(ms):.6f}, {REPEATS} measurements)", flush=True)
-    from repro_torch.kernels.flash_attention import flash_attention
-    res["flash_graph_ms"] = {}
-    for label, name in FLASH_TIMED.items():
-        case = getattr(cs, name) if name.isupper() else cs.LLM_ATTN[name][0]
-        q, kk, v = cs.flash_inputs(torch, case, torch.bfloat16, cuda,
-                                   seed=200)
-        kw = cs.flash_kwargs(case)
-        ms = [cs.graph_ms(torch, lambda: flash_attention(q, kk, v, **kw),
-                          per_graph=20) for _ in range(REPEATS)]
-        res["flash_graph_ms"][label] = {"median": statistics.median(ms),
-                                        "min": min(ms), "max": max(ms)}
-        print(f"[{res['card']}] {tree.name} flash_attention bf16 {label} "
-              f"{case}: median {statistics.median(ms):.6f} ms (range "
-              f"{min(ms):.6f}-{max(ms):.6f}, {REPEATS} measurements)",
-              flush=True)
-    res["sass"] = f32_sass(build)
-    for key, (n, digest) in sorted(res["sass"].items()):
-        print(f"{tree.name} {key}: {n} SASS instructions, sha256 {digest}")
+    res["flash_graph_ms"] = flash_times(torch, cs, cuda, res["card"],
+                                        tree.name)
+    res["sass"] = all_sass(build)
+    again = rebuilt_sass(build)
+    res["sass_unstable"] = sorted(n for n, h in res["sass"].items()
+                                  if n in again and again[n] != h)
+    print(f"{tree.name}: {len(res['sass'])} kernels hashed, "
+          f"{len(res['sass_unstable'])} with other SASS on a second build",
+          flush=True)
     if flash:
         from repro_torch.kernels.flash_attention import (
             flash_attention, flash_attention_plain)
@@ -173,6 +230,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("trees", nargs="+", type=Path)
     ap.add_argument("--flash", action="store_true")
+    ap.add_argument("--out", type=Path)
     ap.add_argument("--one", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.one:
@@ -191,7 +249,30 @@ def main() -> int:
                   file=sys.stderr)
             return proc.returncode
         runs.append(json.loads(lines[-1]))
-    print(json.dumps({"runs": runs}))
+    # kernels whose SASS differs between trees, or that some trees lack
+    names = sorted(set().union(*(r["sass"] for r in runs)))
+    differ = [n for n in names if all(n in r["sass"] for r in runs)
+              and len({tuple(r["sass"][n]) for r in runs}) > 1]
+    partial = [n for n in names if not all(n in r["sass"] for r in runs)]
+    same = len(names) - len(differ) - len(partial)
+    unstable = set().union(*(r["sass_unstable"] for r in runs))
+    print(f"SASS: {same} kernels identical in every tree; {len(differ)} "
+          f"differ, of which {len([n for n in differ if n in unstable])} "
+          f"also differ between two builds of one tree "
+          f"({[n for n in differ if n in unstable]}) and "
+          f"{len([n for n in differ if n not in unstable])} do not "
+          f"({[n for n in differ if n not in unstable]}); {len(partial)} "
+          f"only in some trees: "
+          + "; ".join(f"{n} in {[r['tree'] for r in runs if n in r['sass']]}"
+                      for n in partial))
+    if args.out:
+        args.out.parent.mkdir(parents=True, exist_ok=True)
+        args.out.write_text(json.dumps({"runs": runs, "sass_differ": differ,
+                                        "sass_partial": partial}))
+    print(json.dumps({"runs": [{k: v for k, v in r.items() if k != "sass"}
+                               for r in runs],
+                      "sass_identical": same, "sass_differ": differ,
+                      "sass_partial": partial}))
     return 0
 
 
