@@ -18,7 +18,7 @@ Phases, each of which raises on failure:
      forwards' records and the four backward kernels
      (lstm_sequence_backward, flash_attention_backward, ssm_scan_backward,
      mlstm_chunk_backward) against their plain versions, float32 and bf16,
-     flash's backward also bit-equal on a second call;
+     flash's and the scans' backwards also bit-equal on a second call;
   4. the ICU LSTM models (depth 1, and depth 2, which passes a hidden
      sequence between layers), their logits and their gradients (every
      parameter's .grad through the backward kernel), and zamba2 and
@@ -82,11 +82,13 @@ Phases, each of which raises on failure:
      alone, for each kernel at its main-path shape), each printed beside
      the card's name and power limit (flash_attention also at each of
      phase 6f's prefill shapes, beside scaled_dot_product_attention
-     where it computes the same function), and for ssm_scan, mlstm_chunk
-     and the bf16 flash kernels the registers and spills `nvcc -Xptxas -v`
-     reported and the tensor-core (HMMA, HGMMA) and TMA-load (UTMALDG)
-     instructions in each kernel's SASS (the flash kernels held to wgmma
-     and TMA, unserialized, no spills up to D = 128), and the host time of
+     where it computes the same function), and for ssm_scan, mlstm_chunk,
+     their backwards and the bf16 flash kernels the registers and spills
+     `nvcc -Xptxas -v` reported and the tensor-core (HMMA, HGMMA) and
+     TMA-load (UTMALDG) instructions in each kernel's SASS (the flash
+     kernels held to wgmma and TMA, unserialized, no spills up to
+     D = 128; the scans' bf16 backward kernels that carry products to
+     tensor-core instructions), and the host time of
      encoding a tensor map; the
      schedule searches on CUDA, on the host CPU and in Python (host clock
      after a synchronise), and the device search's kernel launches per
@@ -322,6 +324,18 @@ MLSTM_TRAIN = (8, 1024, 4, 512)
 GRAD_NAMES = {"ssm_scan_backward": ("dx", "ddt", "da", "db", "dc", "dd"),
               "mlstm_chunk_backward": ("dq", "dk", "dv", "di", "df")}
 SSM_GRAD_CASES = [(2, 37, 3, 24, 20), (1, 70, 5, 80, 128), SSM_TRAIN]
+# phase 7: the scans' backward sources, the bf16 kernels that carry their
+# products (each must hold tensor-core instructions) and the others
+SCAN_BWD_KERNELS = (
+    ("ssm_scan_bwd", ("ssd_bwd_states_kernel", "ssd_bwd_main_kernel"),
+     ("ssd_bwd_pass_kernel", "ssd_bwd_reduce_kernel", "ssm_bwd_kernel",
+      "ssm_bwd_reduce_kernel")),
+    ("mlstm_chunk_bwd", ("mlstm_bwd_forward_tc_kernel",
+                         "mlstm_bwd_reverse_tc_kernel",
+                         "mlstm_bwd_chunks_tc_kernel"),
+     ("mlstm_bwd_gates_kernel", "mlstm_bwd_steps_kernel",
+      "mlstm_bwd_chain_kernel", "mlstm_bwd_forward_kernel",
+      "mlstm_bwd_reverse_kernel", "mlstm_bwd_chunks_kernel")))
 MLSTM_GRAD_CASES = [(1, 40, 3, 80), (2, 300, 4, 512), MLSTM_TRAIN]
 # phase 6g: zamba2-2.7b and xlstm-350m at full width and depth in bf16
 # through launch.train, SCAN_TRAIN_STEPS steps at (batch, seq) each;
@@ -1712,8 +1726,9 @@ def check_scan_backward(torch, cuda):
     """Phase 3: ssm_scan_backward and mlstm_chunk_backward against their
     plain versions, float32 and bf16, at SSM_GRAD_CASES and
     MLSTM_GRAD_CASES, with cotangents on y and on the final state, and
-    with y's alone (None for the state): one launch per call. Returns
-    {(kernel, case, dtype name): max gradient error}."""
+    with y's alone (None for the state): one launch per call, and a
+    second call bit-equal to the first. Returns {(kernel, case, dtype
+    name): max gradient error}."""
     from repro_torch.kernels.mlstm_chunk import (mlstm_chunk_backward,
                                                  mlstm_chunk_backward_plain)
     from repro_torch.kernels.ssm_scan import (ssm_scan_backward,
@@ -1739,7 +1754,7 @@ def check_scan_backward(torch, cuda):
                            torch.randn(b, h, d, d, generator=g).to(cuda),
                            torch.randn(b, h, d, generator=g).to(cuda),
                            torch.randn(b, h, generator=g).to(cuda)]
-                worst, ok, launched = 0.0, True, []
+                worst, ok, launched, same = 0.0, True, [], True
                 # each float32 gradient under the unscaled GRAD_TOL bar
                 # too: largest error, largest |plain| entry, entries
                 # outside it (over both state variants)
@@ -1748,8 +1763,11 @@ def check_scan_backward(torch, cuda):
                     before = kernel.launches
                     got = kernel(*args, ups[0], *state)
                     launched.append(kernel.launches - before)
+                    again = kernel(*args, ups[0], *state)
                     want = plain(*args, ups[0], *state)
                     torch.cuda.synchronize()
+                    same = same and all(torch.equal(a, b)
+                                        for a, b in zip(got, again))
                     for gname, a, w in zip(GRAD_NAMES[name], got, want):
                         err, good = grad_close(
                             torch, a, w, str(w.dtype).removeprefix("torch."),
@@ -1761,7 +1779,7 @@ def check_scan_backward(torch, cuda):
                             e0, m0, n0 = unscaled.get(gname, (0.0, 0.0, 0))
                             unscaled[gname] = (max(e0, err), max(
                                 m0, float(w.abs().max())), n0 + out)
-                    del got, want
+                    del got, again, want
                 print(f"{name} {case} {dname}: max |kernel - plain| over "
                       f"the gradients {worst:.3e} (rtol = GRAD_TOL of each "
                       f"gradient's dtype, atol the same, in float32 times "
@@ -1769,15 +1787,17 @@ def check_scan_backward(torch, cuda):
                       + (f", bf16 rows {FLASH_BF16_ROW_REL}"
                          if dname == "bfloat16" else "")
                       + f"), with and without the state's cotangents; "
-                      f"launches {launched}")
+                      f"launches {launched}; a second call bit-equal: "
+                      f"{same}")
                 print(f"  {name} {case} {dname}, float32 gradients under "
                       f"the unscaled bar ({tol} abs + rel): "
                       + ", ".join(f"{gn} error {e:.3e}, largest {m:.3e}, "
                                   f"{n} entries outside"
                                   for gn, (e, m, n) in unscaled.items()))
-                if not ok or launched != [1, 1]:
+                if not ok or launched != [1, 1] or not same:
                     raise RuntimeError(f"{name} {case} {dname}: kernel and "
-                                       f"plain version disagree")
+                                       f"plain version disagree, or two "
+                                       f"calls differ")
                 errs[(name, case, dname)] = worst
                 del args, ups
     return errs
@@ -1887,7 +1907,7 @@ def step_breakdown(prof):
         kind = ("flash backward" if "flash_bwd" in key
                 else "flash forward" if "flash_" in key
                 else "scan backward" if "ssm_bwd" in key
-                or "mlstm_bwd" in key
+                or "ssd_bwd" in key or "mlstm_bwd" in key
                 else "scan forward" if "ssm_" in key or "mlstm_" in key
                 else "gemm" if any(w in key for w in (
                     "gemm", "xmma", "cutlass", "cublas", "nvjet"))
@@ -2268,10 +2288,11 @@ def time_backward(torch, cuda, card):
 def time_scan_backward(torch, cuda, card):
     """Phase 7 for the scans' backward kernels at the training paths'
     shapes, bf16, with a cotangent on y alone (as a loss that drops the
-    final state gives it): ssm_scan_backward at SSM_TRAIN (its two
-    launches) and mlstm_chunk_backward at MLSTM_TRAIN (its six), each
-    beside its plain version and its bound; no single PyTorch call
-    computes either. Returns {kernel: times}."""
+    final state gives it): ssm_scan_backward at SSM_TRAIN (its four
+    launches: local states, state passes, gradients, reduction) and
+    mlstm_chunk_backward at MLSTM_TRAIN (its six), each by events and by
+    CUDA-graph replay, beside its plain version and its bound; no single
+    PyTorch call computes either. Returns {kernel: times}."""
     from repro_torch.kernels.mlstm_chunk import (mlstm_chunk_backward,
                                                  mlstm_chunk_backward_plain)
     from repro_torch.kernels.ssm_scan import (ssm_scan_backward,
@@ -2279,13 +2300,15 @@ def time_scan_backward(torch, cuda, card):
     out = {}
     for name, kernel, plain, shape, inputs, bound, launches in (
             ("ssm_scan_backward", ssm_scan_backward, ssm_scan_backward_plain,
-             SSM_TRAIN, ssm_inputs, ssm_bwd_bound, 2),
+             SSM_TRAIN, ssm_inputs, ssm_bwd_bound, 4),
             ("mlstm_chunk_backward", mlstm_chunk_backward,
              mlstm_chunk_backward_plain, MLSTM_TRAIN, mlstm_inputs,
              mlstm_bwd_bound, 6)):
         args = inputs(torch, shape, torch.bfloat16, cuda, seed=1500)
         dy = inputs(torch, shape, torch.bfloat16, cuda, seed=1501)[0]
         t = {"ms": event_ms(torch, lambda: kernel(*args, dy), 20, warmup=3),
+             "graph_ms": graph_ms(torch, lambda: kernel(*args, dy),
+                                  per_graph=10, replays=5),
              "plain_ms": event_ms(torch, lambda: plain(*args, dy), 2,
                                   warmup=1),
              "library_ms": None}
@@ -2294,8 +2317,9 @@ def time_scan_backward(torch, cuda, card):
         t["bound_by"] = "bytes" if by_bytes >= by_ops else "operations"
         f32_ops = bound(shape, 2, F32_FLOPS)[1]
         out[name] = t
-        print(f"[{card}] {name} {shape} bf16 (CUDA cores, float32 sums): "
-              f"{t['ms']:.4f} ms ({launches} launches), plain "
+        print(f"[{card}] {name} {shape} bf16 (tensor cores, mma.sync, "
+              f"float32 sums): {t['ms']:.4f} ms (CUDA graph "
+              f"{t['graph_ms']:.4f} ms; {launches} launches), plain "
               f"{t['plain_ms']:.4f} ms, library none (no single PyTorch "
               f"call computes it), bound bytes {by_bytes:.6f} ms / "
               f"operations {by_ops:.6f} ms at the bf16 rate (kernel / "
@@ -2908,6 +2932,23 @@ def main():
                                          "mlstm_f32_kernel"))):
         for line, *_ in kernel_report(build, name, kinds):
             print(f"[{card}] {line}")
+    # the scans' backward kernels: every bf16 kernel that carries the
+    # products on the tensor cores (HMMA), the float32 ones on the CUDA
+    # cores
+    for name, products, others in SCAN_BWD_KERNELS:
+        found = set()
+        for line, label, _, n in kernel_report(build, name,
+                                               products + others):
+            print(f"[{card}] {line}")
+            kind = label.split("<")[0]
+            found.add(kind)
+            if kind in products and not (n.get("HMMA") or n.get("HGMMA")):
+                raise RuntimeError(f"{name}.cu {label}: a bf16 backward "
+                                   f"kernel with no tensor-core "
+                                   f"instruction, got {n}")
+        if not set(products) <= found:
+            raise RuntimeError(f"{name}.cu: kernels {sorted(products)} "
+                               f"not all in the build log ({sorted(found)})")
     # dynamic shared memory the bf16 launches request (bf16_smem_bytes in
     # each source): ssm_scan at N = 64, mlstm_chunk at D = 512
     ssm_smem = 2 * (2 * 64 * 72 + 6 * 64 * 72) + 4 * 2 * 64

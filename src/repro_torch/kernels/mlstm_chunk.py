@@ -320,7 +320,8 @@ def mlstm_chunk_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     the final (C, n, m) (float32, contiguous) or None for zero. Returns
     (dq, dk, dv, di, df) as `mlstm_chunk_backward_plain` gives them. On
     the card: one call of `csrc/mlstm_chunk_bwd.cu` (six launches, no
-    atomics; the chunk states are recomputed), counted once in
+    atomics; the chunk states are recomputed; bf16's products on the
+    tensor cores, float32's on the CUDA cores), counted once in
     `mlstm_chunk_backward.launches`; on the CPU,
     `mlstm_chunk_backward_plain`."""
     _check(q, k, v, i_gate, f_gate)

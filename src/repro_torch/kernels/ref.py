@@ -10,6 +10,17 @@ import math
 from typing import Optional
 
 import torch
+import torch.utils.checkpoint
+
+
+def _recomputed(fn, *args):
+    """fn(*args), recomputed in the backward instead of saved when grad
+    is enabled (a non-reentrant `torch.utils.checkpoint`, as the reference
+    wraps the same loop bodies in `jax.checkpoint`); plain under no_grad."""
+    if torch.is_grad_enabled():
+        return torch.utils.checkpoint.checkpoint(fn, *args,
+                                                 use_reentrant=False)
+    return fn(*args)
 
 
 def lstm_cell_reference(x: torch.Tensor, h: torch.Tensor, c: torch.Tensor,
@@ -115,6 +126,19 @@ def attention_blockwise(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     kwin = window + bq if use_slice else lk
     f32 = torch.float32
 
+    def block(qb, kb, vb, q_pos, k_pos):
+        logits = torch.einsum("bhqd,bhkd->bhqk", qb.to(f32),
+                              kb.to(f32)) * scale
+        if softcap is not None:
+            logits = softcap * torch.tanh(logits / softcap)
+        mask = causal_window_mask(q_pos, k_pos, causal, window)
+        logits = logits.masked_fill(~mask[None, None], NEG_INF)
+        out = torch.einsum("bhqk,bhkd->bhqd", torch.softmax(logits, dim=-1),
+                           vb.to(f32))
+        return out.to(q.dtype)
+
+    # each q block recomputed in the backward: no block's (bq, Lk)
+    # probabilities are kept (the reference's jax.checkpoint per block)
     blocks = []
     for qi in range(lq // bq):
         qb = q[:, :, qi * bq:(qi + 1) * bq]
@@ -127,15 +151,7 @@ def attention_blockwise(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             start = 0
             kb, vb = kf, vf
         k_pos = start + torch.arange(kwin, device=q.device)[None, :]
-        logits = torch.einsum("bhqd,bhkd->bhqk", qb.to(f32),
-                              kb.to(f32)) * scale
-        if softcap is not None:
-            logits = softcap * torch.tanh(logits / softcap)
-        mask = causal_window_mask(q_pos, k_pos, causal, window)
-        logits = logits.masked_fill(~mask[None, None], NEG_INF)
-        out = torch.einsum("bhqk,bhkd->bhqd", torch.softmax(logits, dim=-1),
-                           vb.to(f32))
-        blocks.append(out.to(q.dtype))
+        blocks.append(_recomputed(block, qb, kb, vb, q_pos, k_pos))
     return torch.cat(blocks, dim=2)
 
 
@@ -210,10 +226,9 @@ def mlstm_chunk_torch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     c_in = torch.zeros((bsz, h, d, d), dtype=f32, device=q.device)
     n_in = torch.zeros((bsz, h, d), dtype=f32, device=q.device)
     m_in = torch.full((bsz, h), NEG_INF, dtype=f32, device=q.device)
-    ys = []
-    for c0 in range(0, l, t):
-        qc, kc, vc, ic, fc = (x[:, c0:c0 + t].to(f32)
-                              for x in (q, k, v, i_gate, f_gate))
+
+    def body(qc, kc, vc, ic, fc, c_in, n_in, m_in):
+        qc, kc, vc, ic, fc = (x.to(f32) for x in (qc, kc, vc, ic, fc))
         kc = kc * scale
         b = torch.cumsum(torch.nn.functional.logsigmoid(fc), dim=1)
         g = ic - b                                             # (B, T, H)
@@ -231,7 +246,6 @@ def mlstm_chunk_torch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         den = torch.maximum(
             torch.abs(torch.einsum("bthd,bthd->bth", qc, n_vec)),
             torch.exp(-m_t))
-        ys.append(num / den[..., None])
 
         cm_l, b_l, m_l = cm[:, -1], b[:, -1], m_t[:, -1]       # (B, H)
         w_out = torch.exp(g - cm_l[:, None])                   # (B, T, H)
@@ -240,7 +254,16 @@ def mlstm_chunk_torch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         c_in = (c_in * carry[..., None, None]
                 + torch.einsum("bthd,bthe->bhde", kw, vc))
         n_in = n_in * carry[..., None] + kw.sum(dim=1)
-        m_in = m_l
+        return num / den[..., None], c_in, n_in, m_l
+
+    # each chunk recomputed in the backward: no chunk's (T, T) weights are
+    # kept (the reference scans its chunks under jax.checkpoint)
+    ys = []
+    for c0 in range(0, l, t):
+        y_c, c_in, n_in, m_in = _recomputed(
+            body, *(x[:, c0:c0 + t] for x in (q, k, v, i_gate, f_gate)),
+            c_in, n_in, m_in)
+        ys.append(y_c)
     y = torch.cat(ys, dim=1)
     return y.to(q.dtype), (c_in, n_in, m_in)
 

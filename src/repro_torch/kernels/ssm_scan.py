@@ -14,7 +14,9 @@ Training: on the card, `ssm_scan` under autograd is a
 `torch.autograd.Function` whose forward launches the serving kernel as it
 stands and whose backward is `ssm_scan_backward`, the hand-written
 `csrc/ssm_scan_bwd.cu` (the Pallas kernel has no backward; the reference
-differentiates its scan by autodiff). The backward recomputes the states
+differentiates its scan by autodiff): on bf16 inputs the chunked (SSD)
+form on the tensor cores, on float32 the sequential reverse scan on the
+CUDA cores. The backward recomputes the states
 itself rather than have the forward store them. Its plain version,
 `ssm_scan_backward_plain`, is written from the formulas; nothing on the
 card's path runs a plain version.
@@ -86,7 +88,7 @@ def _entry():
 def _backward_entries():
     lib = build.load("ssm_scan_bwd")
     size = lib.repro_ssm_scan_bwd_workspace
-    size.argtypes = [ctypes.c_int] * 5
+    size.argtypes = [ctypes.c_int] * 6
     size.restype = ctypes.c_longlong
     fn = lib.repro_ssm_scan_bwd
     fn.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 6 \
@@ -238,10 +240,13 @@ def ssm_scan_backward(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     of y (x's shape and dtype, contiguous), dstate that of the final state
     ((B, H, P, N) float32, contiguous) or None for zero. Returns (dx, ddt,
     da, db, dc, dd) as `ssm_scan_backward_plain` gives them. On the card:
-    one call of `csrc/ssm_scan_bwd.cu` (two launches: the reverse scan,
-    which writes dx and per-block partial sums, and their reduction), no
-    atomics, counted once in `ssm_scan_backward.launches`; on the CPU,
-    `ssm_scan_backward_plain`."""
+    one call of `csrc/ssm_scan_bwd.cu`, no atomics, counted once in
+    `ssm_scan_backward.launches`: bf16 takes the chunked form on the
+    tensor cores (four launches: every chunk's local states, the passes
+    along the chunks, every chunk's gradients with per-block partial sums,
+    their reduction), float32 the sequential reverse scan on the CUDA
+    cores (two launches: the scan, which writes dx and per-block partial
+    sums, and their reduction); on the CPU, `ssm_scan_backward_plain`."""
     _check(x, dt, a, b, c, d)
     bsz, l, h, p = x.shape
     n = b.shape[-1]
@@ -267,8 +272,8 @@ def ssm_scan_backward(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
                 da.zero_(), db.zero_(), dc.zero_(),
                 (dy.float() * x.float()).sum((0, 1, 3)))
     size, fn = _backward_entries()
-    work = torch.empty(size(bsz, l, h, p, n), dtype=torch.float32,
-                       device=x.device)
+    work = torch.empty(size(_DTYPES[x.dtype], bsz, l, h, p, n),
+                       dtype=torch.float32, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = fn(x.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(),
              c.data_ptr(), d.data_ptr(), dy.data_ptr(),

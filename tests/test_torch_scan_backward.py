@@ -17,6 +17,8 @@ math on both sides and round the gradients of the bf16 inputs once: 2e-2.
 The reduced zamba2 and xlstm losses are held to the reference in
 tests/test_torch_backward.py.
 """
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -256,3 +258,328 @@ def test_mlstm_backward_recomputes_the_forward_states():
     for got, want in zip((c_fin, n_fin, m_fin), final):
         torch.testing.assert_close(got, want, atol=MLSTM_ATOL,
                                    rtol=MLSTM_RTOL)
+
+
+# --- the bf16 tensor-core designs of csrc/ssm_scan_bwd.cu and
+# csrc/mlstm_chunk_bwd.cu, modelled on the CPU --------------------------
+# Each model is the kernel's algebra in plain torch (float32 sums of exact
+# bf16 products) on bf16-valued inputs, every float32 operand fed to a
+# product as the kernel feeds it: bf16 hi + lo (two products, ~16 bits)
+# or, where named in `once`, rounded to bf16 once. It is held against
+# jax.grad of the reference's oracle at the bars chip_smoke.py holds the
+# kernels to against their plain versions: the bf16 gradients within
+# 2e-2 absolute and relative with every row within 1e-2 of its norm (a
+# row's norm taken as at least a tenth of the mean row norm), the float32
+# ones within 1e-4 relative and 1e-4 of their largest entry (at least 1)
+# absolute. The `once` cases show why each split is kept: rounded once,
+# that operand misses a bar.
+CARD_BF16_TOL, CARD_ROW_REL, CARD_F32_TOL = 2e-2, 1e-2, 1e-4
+TC = 64
+
+
+def _bf16(t):
+    """t rounded to bf16 once, kept in float32."""
+    return t.to(torch.bfloat16).to(torch.float32)
+
+
+def _hilo(t):
+    """t as the sum of its bf16 hi and lo parts."""
+    hi = _bf16(t)
+    return hi + _bf16(t - hi)
+
+
+def _card_bars(got, want, bf16):
+    """Whether each gradient meets the card's bar (want from JAX, rounded
+    to bf16 where the kernel writes bf16)."""
+    ok = []
+    for g, w, is_bf16 in zip(got, want, bf16):
+        w = torch.from_numpy(np.array(w))
+        if is_bf16:
+            w = _bf16(w)
+            gap, size = (g - w).norm(dim=-1), w.norm(dim=-1)
+            ok.append(torch.allclose(g, w, atol=CARD_BF16_TOL,
+                                     rtol=CARD_BF16_TOL)
+                      and bool((gap <= CARD_ROW_REL * torch.clamp(
+                          size, min=0.1 * size.mean())).all()))
+        else:
+            atol = CARD_F32_TOL * max(1.0, float(w.abs().max()))
+            ok.append(torch.allclose(g, w, atol=atol, rtol=CARD_F32_TOL))
+    return ok
+
+
+@pytest.fixture
+def one_thread():
+    """The models are long chains of tensor ops: one thread keeps each
+    test process from contending with the other test workers for the
+    cores. Restored after the test."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+SSM_SPLITS = ("w", "z", "m", "hin", "dho", "dg")
+
+
+def _ssm_tc_model(x, dt, a, bm, cm, d, dy, dstate=None, once=()):
+    """csrc/ssm_scan_bwd.cu's bf16 design. Per chunk of 64 steps and head
+    (a ragged last chunk padded with dt = 0, x = B = C = dy = 0), s =
+    cumsum(dt a), S = s_{T-1}: the local states W^T B (W_u = dt_u x_u
+    exp(S - s_u)) and Z = (exp(s) dy)^T C, passed along the chunks into
+    h_in and dh_out; then dM = dy x^T, K = C B^T exp(s_t - s_u) [u <= t],
+    M = K dt_u, dx = M^T dy + dt_u exp(S - s_u) (B dh_out^T)_u + D dy,
+    dG = sum_heads dM exp(s_t - s_u) dt_u, dC = dG B + sum_heads exp(s_t)
+    dy_t h_in, dB = dG^T C + sum_heads W dh_out, and ds_t from those terms,
+    reverse-cumsummed into ddt and da. Split operands ("w", "z", "m",
+    "hin", "dho", "dg": W, exp(s) dy, M, h_in, dh_out, dG) go in as hi +
+    lo, or once. Returns (dx, ddt, da, db, dc, dd), dx, db, dc rounded to
+    bf16."""
+    part = {key: _bf16 if key in once else _hilo for key in SSM_SPLITS}
+    bsz, l, h, p = x.shape
+    n = bm.shape[-1]
+    nc = -(-l // TC)
+
+    def pad(t):
+        out = t.new_zeros((bsz, nc * TC) + t.shape[2:])
+        out[:, :l] = t
+        return out.reshape((bsz, nc, TC) + t.shape[2:])
+    xc, dtc, bc, cc, dyc = map(pad, (x, dt, bm, cm, dy))
+    s = torch.cumsum(dtc * a, dim=2)                            # (B,C,T,H)
+    es, e_s = torch.exp(s), torch.exp(s[:, :, -1])
+    e_ss = torch.exp(s[:, :, -1:] - s)
+    w = (dtc * e_ss)[..., None] * xc
+    hloc = torch.einsum("bcuhp,bcun->bchpn", part["w"](w), bc)
+    zloc = torch.einsum("bcthp,bctn->bchpn", part["z"](es[..., None] * dyc),
+                        cc)
+    hin, dho = torch.zeros(2, bsz, nc, h, p, n)
+    state = torch.zeros(bsz, h, p, n)
+    for c in range(nc):
+        hin[:, c] = state
+        state = e_s[:, c, :, None, None] * state + hloc[:, c]
+    state = torch.zeros(bsz, h, p, n) if dstate is None else dstate
+    for c in range(nc - 1, -1, -1):
+        dho[:, c] = state
+        state = e_s[:, c, :, None, None] * state + zloc[:, c]
+    e0 = e_s * (_hilo(dho) * _hilo(hin)).sum((-1, -2))          # (B,C,H)
+    hin_op, dho_op = part["hin"](hin), part["dho"](dho)
+    causal = torch.tril(torch.ones(TC, TC, dtype=torch.bool))
+    dec = torch.where(causal[None, None, :, :, None],
+                      torch.exp(s[:, :, :, None] - s[:, :, None]), 0.0)
+    kk = torch.einsum("bctn,bcun->bctu", cc, bc)[..., None] * dec
+    dm = torch.einsum("bcthp,bcuhp->bctuh", dyc, xc)
+    mm = kk * dtc[:, :, None]
+    rb = torch.einsum("bcun,bchpn->bcuhp", bc, dho_op)
+    dx = (torch.einsum("bctuh,bcthp->bcuhp", part["m"](mm), dyc)
+          + (dtc * e_ss)[..., None] * rb + d[:, None] * dyc)
+    q = e_ss * (xc * rb).sum(-1)
+    y0 = es * (dyc * torch.einsum("bctn,bchpn->bcthp", cc, hin_op)).sum(-1)
+    dg = part["dg"]((dm * dec * dtc[:, :, None]).sum(-1))
+    dc = (torch.einsum("bctu,bcun->bctn", dg, bc)
+          + torch.einsum("bcth,bcthp,bchpn->bctn", es, dyc, hin_op))
+    db = (torch.einsum("bctu,bctn->bcun", dg, cc)
+          + torch.einsum("bcuh,bcuhp,bchpn->bcun", dtc * e_ss, xc, dho_op))
+    colk = (dm * kk).sum(2)
+    ds = y0 + (dm * mm).sum(3) - dtc * (colk + q)
+    ds[:, :, -1] += e0 + (dtc * q).sum(2)
+    dl = torch.flip(torch.cumsum(torch.flip(ds, [2]), 2), [2])
+
+    def unpad(t):
+        return t.reshape((bsz, nc * TC) + t.shape[3:])[:, :l]
+    return (_bf16(unpad(dx)), unpad(colk + q + a * dl),
+            (dtc * dl).sum((0, 1, 2)), _bf16(unpad(db)), _bf16(unpad(dc)),
+            (dyc * xc).sum((0, 1, 2, 4)))
+
+
+@functools.lru_cache(maxsize=None)
+def _ssm_tc_case(shape, seed, with_state):
+    """bf16-valued inputs (x, B, C, dy) and jax.grad of the reference's
+    sequential scan on them."""
+    args, dy, dstate = _ssm_inputs(shape, seed)
+    for j in (0, 3, 4):
+        args[j] = _bf16(torch.from_numpy(args[j])).numpy()
+    dy = _bf16(torch.from_numpy(dy)).numpy()
+    dstate = dstate if with_state else None
+
+    def loss(*a):
+        y, state = jref.ssm_scan_reference(*a)
+        out = jnp.sum(y * dy)
+        return out if dstate is None else out + jnp.sum(state * dstate)
+    want = jax.grad(loss, argnums=tuple(range(6)))(*map(jnp.asarray, args))
+    return args, dy, dstate, want
+
+
+def _ssm_tc_bars(shape, seed, with_state, once=()):
+    args, dy, dstate, want = _ssm_tc_case(shape, seed, with_state)
+    got = _ssm_tc_model(*map(torch.from_numpy, args), torch.from_numpy(dy),
+                        None if dstate is None else torch.from_numpy(dstate),
+                        once=once)
+    return _card_bars(got, want, (True, False, False, True, True, False))
+
+
+# zamba2's head shape (P = N = 64) at 8 of its 80 heads over 512 steps,
+# and chip_smoke.py's ragged SSM_GRAD_CASES
+SSM_TC_CASES = [(1, 512, 8, 64, 64), (2, 37, 3, 24, 20), (1, 70, 5, 80, 128)]
+
+
+@pytest.mark.parametrize("with_state", [True, False], ids=["state", "y"])
+@pytest.mark.parametrize("shape", SSM_TC_CASES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_ssm_tensor_core_model_meets_the_card_bars(shape, with_state,
+                                                   one_thread):
+    assert all(_ssm_tc_bars(shape, 0, with_state)), SSM_NAMES
+
+
+@pytest.mark.parametrize("once", SSM_SPLITS)
+def test_one_rounding_of_an_ssm_backward_operand_misses_the_bars(
+        once, one_thread):
+    """Why each float32 operand of the SSD backward takes two products:
+    rounded to bf16 once, W, exp(s) dy, h_in or dh_out miss the float32
+    ddt's bar, M misses dx's rows, dG dB's and dC's."""
+    shape = SSM_TC_CASES[0]
+    assert all(_ssm_tc_bars(shape, 0, True))
+    assert not all(_ssm_tc_bars(shape, 0, True, once=(once,)))
+
+
+MLSTM_SPLITS = ("c", "s", "kw", "dnum", "dc", "iq", "dqk")
+
+
+def _mlstm_tc_model(q, k, v, ig, fg, dy, dc=None, dn=None, dm=None,
+                    once=()):
+    """csrc/mlstm_chunk_bwd.cu's bf16 design, written from
+    `mlstm_chunk_backward_plain` with the kernel's operands: q, k, v, dy
+    exact; C and dC carried as hi + lo pairs (rounded after every update,
+    "c", "dc"), S = (q k~^T) w ("s"), k w_out / sqrt(D) in C's update
+    ("kw"), dnum = dy / den ("dnum"), inter q in dC's ("iq") and dS w
+    ("dqk") fed as hi + lo, or once where named in `once`; n and dn
+    updated in float32. Returns (dq, dk, dv) rounded to bf16 and (di,
+    df)."""
+    part = {key: _bf16 if key in once else _hilo for key in MLSTM_SPLITS}
+    f32 = torch.float32
+    bsz, l, h, d = q.shape
+    scale = 1.0 / d ** 0.5
+    c_in = torch.zeros(bsz, h, d, d)
+    n_in = torch.zeros(bsz, h, d)
+    m_in = torch.full((bsz, h), tref.NEG_INF)
+    states = []
+    for c0 in range(0, l, TC):
+        sl = slice(c0, min(c0 + TC, l))
+        states.append((c0, c_in, n_in, m_in))
+        r = mk._chunk_record(q[:, sl], k[:, sl] * scale, v[:, sl], ig[:, sl],
+                             fg[:, sl], c_in, n_in, m_in)
+        kw = k[:, sl] * scale * r["w_out"][..., None]
+        c_in = part["c"](c_in * r["carry"][..., None, None]
+                         + torch.einsum("bthd,bthe->bhde", part["kw"](kw),
+                                        v[:, sl]))
+        n_in = n_in * r["carry"][..., None] + kw.sum(1)
+        m_in = r["m_last"]
+    d_c = part["dc"](torch.zeros(bsz, h, d, d) if dc is None else dc)
+    d_n = torch.zeros(bsz, h, d) if dn is None else dn.clone()
+    d_m = torch.zeros(bsz, h) if dm is None else dm.clone()
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    di, df = torch.empty_like(ig), torch.empty_like(fg)
+    for c0, c_in, n_in, m_in in reversed(states):
+        sl = slice(c0, min(c0 + TC, l))
+        qc, kc, vc, dyc, fc = (t[:, sl] for t in (q, k, v, dy, fg))
+        r = mk._chunk_record(qc, kc * scale, vc, ig[:, sl], fc, c_in, n_in,
+                             m_in)
+        s_op = part["s"](r["s"])
+        num = (torch.einsum("btuh,buhe->bthe", s_op, vc)
+               + torch.einsum("bthd,bhde->bthe", qc, c_in)
+               * r["inter"][..., None])
+        qn, em, inter, w_out, carry = (r[x] for x in ("qn", "em", "inter",
+                                                      "w_out", "carry"))
+        den = torch.maximum(qn.abs(), em)
+        dnum = part["dnum"](dyc / den[..., None])
+        dden = -(dyc * num).sum(-1) / den ** 2
+        qn_wins = (qn.abs() > em).to(f32) + 0.5 * (qn.abs() == em).to(f32)
+        dqn = dden * torch.sign(qn) * qn_wins
+        dmt = -dden * em * (1.0 - qn_wins)
+        dmt[:, -1] += d_m
+        ds = torch.where(r["causal"],
+                         torch.einsum("bthe,buhe->btuh", dyc, vc)
+                         / den[:, :, None] + dqn[:, :, None], 0.0)
+        dqk = ds * r["w"]
+        dqk_op = part["dqk"](dqk)
+        c_dnum = (torch.einsum("bhde,bthe->bthd", c_in, dyc)
+                  / den[..., None] + dqn[..., None] * n_in[:, None])
+        dc_v = torch.einsum("bhde,buhe->buhd", d_c, vc) + d_n[:, None]
+        dq[:, sl] = (torch.einsum("btuh,buhd->bthd", dqk_op, kc) * scale
+                     + inter[..., None] * c_dnum)
+        dk[:, sl] = (torch.einsum("btuh,bthd->buhd", dqk_op, qc)
+                     + w_out[..., None] * dc_v) * scale
+        dv[:, sl] = (torch.einsum("btuh,bthe->buhe", s_op, dnum)
+                     + w_out[..., None] * scale
+                     * torch.einsum("bhde,buhd->buhe", d_c, kc))
+        dw = ds * r["s"]
+        d_inter = (qc * c_dnum).sum(-1) * inter
+        d_wout = (kc * scale * dc_v).sum(-1) * w_out
+        d_carry = ((c_in * d_c).sum((-2, -1))
+                   + (n_in * d_n).sum(-1)) * carry
+        dg = dw.sum(1) + d_wout
+        dcm = dmt - dw.sum(2) - d_inter
+        dcm[:, -1] -= d_wout.sum(1) + d_carry
+        cmx = r["cmx"]
+        to_g = ((cmx > m_in[:, None]).to(f32)
+                + 0.5 * (cmx == m_in[:, None]).to(f32))
+        dg = dg.scatter_add(1, r["idx"], dcm * to_g)
+        d_m = d_inter.sum(1) + d_carry + (dcm * (1.0 - to_g)).sum(1)
+        dlf = torch.flip(torch.cumsum(torch.flip(dmt - dg, (1,)), 1), (1,))
+        di[:, sl] = dg
+        df[:, sl] = dlf * torch.sigmoid(-fc)
+        iq = qc * inter[..., None]
+        d_c = part["dc"](d_c * carry[..., None, None]
+                         + torch.einsum("bthd,bthe->bhde", part["iq"](iq),
+                                        dnum))
+        d_n = (d_n * carry[..., None]
+               + torch.einsum("bth,bthd->bhd", dqn, iq))
+    return _bf16(dq), _bf16(dk), _bf16(dv), di, df
+
+
+@functools.lru_cache(maxsize=None)
+def _mlstm_tc_case(case, seed, with_state):
+    args, dy, state = _mlstm_inputs(case, seed)
+    for j in range(3):
+        args[j] = _bf16(torch.from_numpy(args[j])).numpy()
+    dy = _bf16(torch.from_numpy(dy)).numpy()
+    state = state if with_state else None
+
+    def loss(*a):
+        y, outs = jref.mlstm_chunk_jnp(*a, chunk=64)
+        total = jnp.sum(y * dy)
+        if state is not None:
+            total = total + sum(jnp.sum(o * s) for o, s in zip(outs, state))
+        return total
+    want = jax.grad(loss, argnums=tuple(range(5)))(*map(jnp.asarray, args))
+    return args, dy, state, want
+
+
+def _mlstm_tc_bars(case, seed, with_state, once=()):
+    args, dy, state, want = _mlstm_tc_case(case, seed, with_state)
+    st = [None] * 3 if state is None else [torch.from_numpy(s)
+                                           for s in state]
+    got = _mlstm_tc_model(*map(torch.from_numpy, args), torch.from_numpy(dy),
+                          *st, once=once)
+    return _card_bars(got, want, (True, True, True, False, False))
+
+
+# xlstm-350m's head width D = 512 at 2 heads over 256 steps, and a ragged
+# D = 128 with the exp(-m) branch live
+MLSTM_TC_CASES = [(1, 256, 2, 512, 0.0), (1, 130, 2, 128, -3.0)]
+
+
+@pytest.mark.parametrize("with_state", [True, False], ids=["state", "y"])
+@pytest.mark.parametrize("case", MLSTM_TC_CASES, ids=str)
+def test_mlstm_tensor_core_model_meets_the_card_bars(case, with_state,
+                                                     one_thread):
+    assert all(_mlstm_tc_bars(case, 0, with_state)), MLSTM_NAMES
+
+
+@pytest.mark.parametrize("once", MLSTM_SPLITS)
+def test_one_rounding_of_an_mlstm_backward_operand_misses_the_bars(
+        once, one_thread):
+    """Why each float32 operand of the mLSTM backward takes two products
+    (or is carried as a pair): rounded to bf16 once, each misses the
+    float32 di's or df's bar or the bf16 dq's, dk's or dv's rows."""
+    case = MLSTM_TC_CASES[0]
+    assert all(_mlstm_tc_bars(case, 0, True))
+    assert not all(_mlstm_tc_bars(case, 0, True, once=(once,)))

@@ -12,14 +12,17 @@ process per checkout:
     CUDA-graph replay, beside scaled_dot_product_attention where it
     computes the same function (its backward by CUDA events: autograd
     cannot be captured), and each shape's bound;
+  * `ssm_scan_backward` at zamba2-2.7b's training shape (SSM_TRAIN) and
+    `mlstm_chunk_backward` at xlstm-350m's (MLSTM_TRAIN), bf16, with a
+    cotangent on y alone, by CUDA-graph replay, beside their bounds;
   * a hash of the SASS of every kernel in every built library
     (`cuobjdump -sass`, the instructions without their addresses and
     encodings), keyed by mangled name, and of a second build of each
     source; after the runs, the kernels whose hash differs between trees
     (and which of them also differ between two builds of one tree: nvcc
     does not reproduce every kernel's SASS) or that only some trees have,
-    so two checkouts can be seen to run the same machine code where
-    nothing was meant to change;
+    by library, so two checkouts can be seen to run the same machine code
+    where nothing was meant to change;
   * with --flash: the bf16 `flash_attention` kernel against its plain
     version at every shape of chip_smoke.py's phase 3 (same inputs, same
     seeds), under both of its bars: ATTN_TOL's allclose and
@@ -55,19 +58,19 @@ def all_sass(build, libs=None):
     import hashlib
     cuobjdump = Path(build._nvcc()).with_name("cuobjdump")
     libs = libs or build.build(*LIBRARIES)
-    sass = "".join(subprocess.run([str(cuobjdump), "-sass", str(lib)],
-                                  capture_output=True, text=True, check=True,
-                                  timeout=300).stdout
-                   for lib in libs.values())
     out = {}
-    for part in sass.split("Function : ")[1:]:
-        ins = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(.*?)\s*;", part)
-        # an anonymous namespace's mangled name carries a hash of the
-        # source's path, which differs between checkouts
-        name = re.sub(r"^_ZN\d+_GLOBAL__N__\w+?_cu_[0-9a-f]{8}",
-                      "_ZN_anon_", part.split()[0])
-        out[name] = (
-            len(ins), hashlib.sha256("\n".join(ins).encode()).hexdigest()[:16])
+    for lib_name, lib in libs.items():
+        sass = subprocess.run([str(cuobjdump), "-sass", str(lib)],
+                              capture_output=True, text=True, check=True,
+                              timeout=300).stdout
+        for part in sass.split("Function : ")[1:]:
+            ins = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(.*?)\s*;", part)
+            # an anonymous namespace's mangled name carries a hash of the
+            # source's path, which differs between checkouts
+            name = re.sub(r"^_ZN\d+_GLOBAL__N__\w+?_cu_[0-9a-f]{8}",
+                          "_ZN_anon_", part.split()[0])
+            out[f"{lib_name}/{name}"] = (len(ins), hashlib.sha256(
+                "\n".join(ins).encode()).hexdigest()[:16])
     return out
 
 
@@ -151,6 +154,33 @@ def flash_times(torch, cs, cuda, card, name):
     return out
 
 
+def scan_backward_times(torch, cs, cuda, card, name):
+    """Graph-replayed bf16 `ssm_scan_backward` at SSM_TRAIN and
+    `mlstm_chunk_backward` at MLSTM_TRAIN, a cotangent on y alone (the
+    inputs of chip_smoke.py's phase 7), beside their bounds."""
+    from repro_torch.kernels.mlstm_chunk import mlstm_chunk_backward
+    from repro_torch.kernels.ssm_scan import ssm_scan_backward
+    out = {}
+    for label, kernel, shape, inputs, bound in (
+            ("ssm_scan_backward", ssm_scan_backward, cs.SSM_TRAIN,
+             cs.ssm_inputs, cs.ssm_bwd_bound),
+            ("mlstm_chunk_backward", mlstm_chunk_backward, cs.MLSTM_TRAIN,
+             cs.mlstm_inputs, cs.mlstm_bwd_bound)):
+        args = inputs(torch, shape, torch.bfloat16, cuda, seed=1500)
+        dy = inputs(torch, shape, torch.bfloat16, cuda, seed=1501)[0]
+        row = {"case": list(shape),
+               "kernel": timed(torch, cs, lambda: kernel(*args, dy), 3),
+               "bound_ms": max(bound(shape, 2, cs.BF16_FLOPS))}
+        out[label] = row
+        print(f"[{card}] {name} {label} bf16 {shape}: median "
+              f"{row['kernel']['median']:.6f} ms (range "
+              f"{row['kernel']['min']:.6f}-{row['kernel']['max']:.6f}, "
+              f"{REPEATS} measurements), bound {row['bound_ms']:.6f} ms",
+              flush=True)
+        del args, dy
+    return out
+
+
 def flash_rows(torch, cs, flash_attention, flash_attention_plain, cuda):
     """Phase 3's bf16 flash checks: per case, max |kernel - plain|, the
     largest row's relative L2 error, and whether each bar holds."""
@@ -211,6 +241,8 @@ def run_one(tree: Path, flash: bool) -> dict:
                   f"{max(ms):.6f}, {REPEATS} measurements)", flush=True)
     res["flash_graph_ms"] = flash_times(torch, cs, cuda, res["card"],
                                         tree.name)
+    res["scan_backward_graph_ms"] = scan_backward_times(
+        torch, cs, cuda, res["card"], tree.name)
     res["sass"] = all_sass(build)
     again = rebuilt_sass(build)
     res["sass_unstable"] = sorted(n for n, h in res["sass"].items()
@@ -265,6 +297,15 @@ def main() -> int:
           f"only in some trees: "
           + "; ".join(f"{n} in {[r['tree'] for r in runs if n in r['sass']]}"
                       for n in partial))
+    by_lib = {}
+    for n in differ + partial:
+        lib = n.split("/", 1)[0]
+        stable = n in partial or n not in unstable
+        by_lib.setdefault(lib, [0, 0])[0 if stable else 1] += 1
+    print("SASS by library (kernels that differ between trees or are only "
+          "in some, [stable within a tree, unstable]): "
+          + (", ".join(f"{lib} {v}" for lib, v in sorted(by_lib.items()))
+             or "none"))
     if args.out:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(json.dumps({"runs": runs, "sass_differ": differ,
