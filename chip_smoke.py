@@ -18,7 +18,9 @@ Phases, each of which raises on failure:
      forwards' records and the four backward kernels
      (lstm_sequence_backward, flash_attention_backward, ssm_scan_backward,
      mlstm_chunk_backward) against their plain versions, float32 and bf16,
-     flash's and the scans' backwards also bit-equal on a second call;
+     each also bit-equal on a second call, and lstm_sequence_backward's
+     device kernels per call counted by torch.profiler (at most two, none
+     from a library);
   4. the ICU LSTM models (depth 1, and depth 2, which passes a hidden
      sequence between layers), their logits and their gradients (every
      parameter's .grad through the backward kernel), and zamba2 and
@@ -94,7 +96,9 @@ Phases, each of which raises on failure:
      after a synchronise), and the device search's kernel launches per
      pass-regime sweep (torch.profiler); the metro engine's events/s on
      CUDA and on the host CPU (phase 6e's runs); the backward kernels at
-     the training paths' shapes beside cuDNN's nn.LSTM backward and
+     the training paths' shapes (lstm_sequence_backward also by CUDA-graph
+     replay, in the offline phase's call too, with its device kernels per
+     call and `serial_bwd_estimate`) beside cuDNN's nn.LSTM backward and
      scaled_dot_product_attention's backward, and the scans' backward
      kernels at zamba2's and xlstm's training shapes beside their bounds;
   8. one more run of each main path under torch.profiler (metro: the
@@ -460,6 +464,16 @@ def flash_bwd_bound(case):
     extra = 2 * d * (2 * b * hq * lq + 2 * b * hkv * case[4]) \
         + 4 * b * hq * lq
     return by_bytes + extra / HBM_BYTES_PER_S * 1e3, 2.5 * fwd_ops
+
+
+def serial_bwd_estimate(shape, t_len):
+    """An estimate (ms), not a bound, of lstm_sequence_backward's T
+    dependent steps alone: per step the chain's 4H FMAs of dh_next (4
+    cycles each, in one dependent sum) and the gate math's two dependent
+    special-function operations (tanh's exp2 and reciprocal, ~20 cycles
+    each), at the boost clock."""
+    h = shape[2]
+    return t_len * (4 * 4 * h + 2 * 20) / SM_CLOCK_HZ * 1e3
 
 
 def serial_estimate(shape, t_len):
@@ -1473,8 +1487,9 @@ def time_fleet(torch, cuda, card):
     # fleet planning on the 4 + 2 fleet: the batched device search on CUDA
     # and on the host CPU, and the Python search looped per ward (no
     # device search), the median of 3 runs at n = 100 and one run at n =
-    # 1000 (8-55 s each). n = 1000 runs at B = 1 only if B = 32 takes over
-    # 60 s on CUDA
+    # 1000 (8-20 s each), where the host CPU's torch run (~58 s) is left
+    # out to keep the script inside its time limit. n = 1000 runs at B = 1
+    # only if B = 32 takes over 60 s on CUDA
     cpu = torch.device("cpu")
     backends = (("cuda", dict(min_batch=1, device=cuda)),
                 ("torch on the host cpu", dict(min_batch=1, device=cpu)),
@@ -1491,9 +1506,8 @@ def time_fleet(torch, cuda, card):
             jobs = [int_instance(sim, tiers, np.random.default_rng(7000 + i),
                                  n) for i in range(B)]
             for label, kw in backends:
-                if (n, B, label) == (large, 32, "torch on the host cpu") \
-                        and batched_s[(large, 32, "cuda")] > 60:
-                    break
+                if n == large and label == "torch on the host cpu":
+                    continue
                 batched_s[(n, B, label)] = host_seconds(
                     torch, lambda: scheduler.search_batched(
                         jobs, machines_per_tier=mpt_fleet, **kw), card,
@@ -1614,13 +1628,53 @@ def grad_close(torch, got, want, dtype_name, *, to_largest=False):
     return float((g - w).abs().max()), ok
 
 
+def device_kernels(torch, fn, calls=20, tries=3):
+    """The device kernels `calls` calls of `fn` run, from torch.profiler
+    (after a warm-up call): ({kernel name: launches per call}, launches
+    per call). The profiler can drop records of a window this short (seen:
+    one of a call's two kernels, or none), so a window is `calls` calls,
+    and one that recorded nothing is profiled again, up to `tries` times.
+    """
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        seen = {}
+        for e in prof.key_averages():
+            if e.device_type != DeviceType.CPU:
+                # "void (anonymous namespace)::lstm_bwd_..._kernel<...>(...)"
+                name = e.key.split("::")[-1].split("(")[0]
+                seen[name] = seen.get(name, 0.0) + e.count / calls
+        if seen:
+            break
+    return seen, sum(seen.values())
+
+
+def fused_lstm_backward(kernels):
+    """Whether the device kernels `device_kernels` saw are the fused LSTM
+    backward's: at most two launches a call, all of its own kernels, none
+    from a library."""
+    seen, per_call = kernels
+    return 0 < per_call <= 2 and all("lstm_bwd" in n for n in seen) and \
+        not any(w in n.lower() for n in seen
+                for w in ("gemm", "cublas", "cudnn"))
+
+
 def check_lstm_backward(torch, cuda):
     """Phase 3: the training forward of lstm_sequence (its record: hs, the
     activated gates, the cell states) and lstm_sequence_backward against
     their plain versions, float32 and bf16, at TRAIN_LSTM_SHAPES and T =
     ICU_T, with upstream gradients on h_T, c_T and the hidden sequence
-    (what a layer below a second layer receives). Returns the largest
-    float32 gradient error."""
+    (what a layer below a second layer receives): one counted launch, a
+    second call bit-equal to the first, a call without dxs giving the same
+    weight gradients bit for bit, and the device kernels of one call (the
+    profiler): at most two, the fused kernel and the reduction, none from
+    a library. Returns the largest float32 gradient error."""
     from repro_torch.kernels.lstm_cell import (
         lstm_sequence_backward, lstm_sequence_backward_plain,
         lstm_sequence_train, lstm_sequence_train_plain)
@@ -1640,25 +1694,42 @@ def check_lstm_backward(torch, cuda):
                 else LSTM_BF16_TOL
             fwd_err = max(float((a.float() - w.float()).abs().max())
                           for a, w in zip(rec, want))
+            call = (args[0], args[1], args[2], *rec[2:], *ups)
             before = lstm_sequence_backward.launches
-            grads = lstm_sequence_backward(args[0], args[1], args[2],
-                                           *rec[2:], *ups)
+            grads = lstm_sequence_backward(*call)
             launched = lstm_sequence_backward.launches - before
-            plain = lstm_sequence_backward_plain(args[0], args[1], args[2],
-                                                 *rec[2:], *ups)
+            again = lstm_sequence_backward(*call)
+            no_dxs = lstm_sequence_backward(*call, need_dxs=False)
+            plain = lstm_sequence_backward_plain(*call)
             torch.cuda.synchronize()
             errs = [grad_close(torch, a, w, name)
                     for a, w in zip(grads, plain)]
             err = max(e for e, _ in errs)
+            same = all(torch.equal(a, b) for a, b in zip(grads, again))
+            same_no_dxs = no_dxs[0] is None and all(
+                torch.equal(a, b) for a, b in zip(grads[1:], no_dxs[1:]))
+            kernels = device_kernels(torch, lambda: lstm_sequence_backward(
+                *call))
+            main_kernels = device_kernels(
+                torch, lambda: lstm_sequence_backward(*call[:7],
+                                                      need_dxs=False))
             print(f"lstm_sequence_backward {shape} T={ICU_T} {name}: "
                   f"training forward's record max |kernel - plain| "
                   f"{fwd_err:.3e} (atol {fwd_tol}); max |kernel - plain| "
                   f"(dxs, dwx, dwh, db) = {err:.3e} (atol = rtol = "
-                  f"{GRAD_TOL[name]}); launches {launched}")
+                  f"{GRAD_TOL[name]}); launches {launched}; a second call "
+                  f"bit-equal: {same}; without dxs the same weight "
+                  f"gradients: {same_no_dxs}; device kernels per call "
+                  f"(torch.profiler, 20 calls) {kernels[1]:g}: {kernels[0]}, "
+                  f"h_T's gradient alone without dxs {main_kernels[1]:g}")
             if not fwd_err <= fwd_tol or not all(ok for _, ok in errs) or \
-                    launched != 1:
+                    launched != 1 or not same or not same_no_dxs or \
+                    not fused_lstm_backward(kernels) or \
+                    not fused_lstm_backward(main_kernels):
                 raise RuntimeError(f"lstm_sequence_backward {shape} {name}: "
-                                   f"kernel and plain version disagree")
+                                   f"kernel and plain version disagree, two "
+                                   f"calls differ, or a call is not the "
+                                   f"fused kernels alone")
             if dtype == torch.float32:
                 worst = max(worst, err)
     return worst
@@ -2173,11 +2244,15 @@ def drive_training(torch, kernels, card):
 def time_backward(torch, cuda, card):
     """Phase 7 for the backward kernels. lstm_sequence_backward at each
     ICU shape at the training batch (B = 32, T = 48, float32, upstream
-    gradient on h_T, zeros on c_T and the sequence, as a depth-1 ICULSTM's
-    loss gives them): the wrapper (the chain kernel and the products off
-    it), its plain version and cuDNN's nn.LSTM backward (TF32 off) at the
-    same shape. flash_attention_backward at qwen2-1.5b's training shape
-    (bf16, causal, GQA 6:1): the wrapper (its three or four launches),
+    gradient on h_T, zeros on c_T and the sequence, dxs computed: the call
+    earlier PRs timed): the wrapper (the fused kernel and the reduction) by
+    events and by CUDA-graph replay, its plain version and cuDNN's nn.LSTM
+    backward (TF32 off) at the same shape; the call a depth-1 ICULSTM's
+    loss makes (h_T's gradient alone, the others None, no dxs: the first
+    layer's xs are data) by events and graph replay; the device kernels of
+    one call (torch.profiler); the bound and `serial_bwd_estimate`.
+    flash_attention_backward at qwen2-1.5b's training shape (bf16, causal,
+    GQA 6:1): the wrapper (its three or four launches),
     the plain version and SDPA's backward (enable_gqa); the forward with
     and without the row log-sum-exp; and the wrapper at gemma2's window
     and softcap (TRAIN_ATTN[1]). Returns ({shape: times}, flash times)."""
@@ -2211,10 +2286,20 @@ def time_backward(torch, cuda, card):
         def lib():
             return torch.autograd.grad(h_n, inputs, ups[0][None],
                                        retain_graph=True)
+        main_args = (args[0], args[1], args[2], *rec[2:], ups[0])
+
+        def main_call():
+            return lstm_sequence_backward(*main_args, need_dxs=False)
+        # before any graph capture of the call (phase 3 holds the count)
+        kernels = device_kernels(torch, lambda: lstm_sequence_backward(
+            *bwd_args))
+        main_kernels = device_kernels(torch, main_call)
         t = {"ms": event_ms(torch, lambda: lstm_sequence_backward(
                  *bwd_args), 500),
              "graph_ms": graph_ms(torch, lambda: lstm_sequence_backward(
                  *bwd_args)),
+             "main_ms": event_ms(torch, main_call, 500),
+             "main_graph_ms": graph_ms(torch, main_call),
              "plain_ms": event_ms(torch, lambda: lstm_sequence_backward_plain(
                  *bwd_args), 20, warmup=3),
              "library_ms": event_ms(torch, lib, 300)}
@@ -2222,13 +2307,23 @@ def time_backward(torch, cuda, card):
         t["bound_ms"] = max(t["bytes_ms"], t["ops_ms"])
         t["bound_by"] = "bytes" if t["bytes_ms"] >= t["ops_ms"] \
             else "operations"
+        t["serial_ms"] = serial_bwd_estimate(shape, ICU_T)
         per[shape] = t
         print(f"[{card}] lstm_sequence_backward B,I,H={shape} T={ICU_T} "
-              f"float32: wrapper (chain kernel + products) {t['ms']:.5f} "
-              f"ms, replayed from a CUDA graph {t['graph_ms']:.5f} ms, "
+              f"float32: wrapper (fused kernel + reduction) {t['ms']:.5f} "
+              f"ms, replayed from a CUDA graph {t['graph_ms']:.5f} ms; the "
+              f"offline phase's call (no dxs, h_T's gradient alone) "
+              f"{t['main_ms']:.5f} ms, graph {t['main_graph_ms']:.5f} ms; "
               f"plain {t['plain_ms']:.5f} ms, cuDNN nn.LSTM backward "
               f"{t['library_ms']:.5f} ms, bound {t['bound_ms']:.6f} ms "
-              f"({t['bound_by']}), launches per offline-phase step 1")
+              f"({t['bound_by']}), serial estimate {t['serial_ms']:.5f} ms; "
+              f"device kernels per call (torch.profiler, 20 calls) "
+              f"{kernels[1]:g} (the offline phase's {main_kernels[1]:g}): "
+              f"{kernels[0]}; launches per offline-phase step 1")
+        if any(not fused_lstm_backward(k) for k in (kernels, main_kernels)
+               if k[0]):
+            raise RuntimeError(f"lstm_sequence_backward {shape}: a call is "
+                               f"not the fused kernels alone: {kernels}")
         del lstm, x, h_n, inputs
     torch.backends.cudnn.allow_tf32 = allow_tf32
 
@@ -2949,6 +3044,12 @@ def main():
         if not set(products) <= found:
             raise RuntimeError(f"{name}.cu: kernels {sorted(products)} "
                                f"not all in the build log ({sorted(found)})")
+    # the fused LSTM backward and its reduction (float32 and bf16
+    # instances, each chain width): registers and spills
+    for line, *_ in kernel_report(build, "lstm_cell",
+                                  ("lstm_bwd_fused_kernel",
+                                   "lstm_bwd_reduce_kernel")):
+        print(f"[{card}] {line}")
     # dynamic shared memory the bf16 launches request (bf16_smem_bytes in
     # each source): ssm_scan at N = 64, mlstm_chunk at D = 512
     ssm_smem = 2 * (2 * 64 * 72 + 6 * 64 * 72) + 4 * 2 * 64
@@ -3134,6 +3235,9 @@ def main():
         "launches": trained["icu"]["lstm_sequence_backward"],
         "max_abs_err": lstm_bwd_err,
         "ms": statistics.mean(t["ms"] for t in per_bwd.values()),
+        "graph_ms": statistics.mean(t["graph_ms"] for t in per_bwd.values()),
+        "serial_ms": statistics.mean(t["serial_ms"]
+                                     for t in per_bwd.values()),
         "plain_ms": statistics.mean(t["plain_ms"] for t in per_bwd.values()),
         "bound_ms": statistics.mean(t["bound_ms"] for t in per_bwd.values()),
         "bound_by": statistics.mode(t["bound_by"] for t in per_bwd.values()),

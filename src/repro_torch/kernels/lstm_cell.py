@@ -17,11 +17,12 @@ scan of the cell carries them).
 Training: on the card, `lstm_sequence` under autograd is a
 `torch.autograd.Function`. Its forward launches the training instance of
 the sequence kernel, which also records every step's activated gates and
-cell state (float32); its backward is `lstm_sequence_backward`, a
-hand-written kernel for the serial chain back through time, then matrix
-products over all T·B rows for the weights' gradients and dxs (which the
-reference's autodiff also computes outside its kernel). Its plain
-version, `lstm_sequence_backward_plain`, is written from the formulas.
+cell state (float32); its backward is `lstm_sequence_backward`, the
+whole layer's gradient in two hand-written launches: the serial chain back
+through time with the products off it (dxs and each batch row's partial
+weight gradients) in one, the rows' partials summed in a fixed order in
+the other. Its plain version, `lstm_sequence_backward_plain`, is written
+from the formulas.
 The one-step `lstm_cell` is on no training path and raises under grad on
 the card rather than return a tensor autograd cannot see.
 
@@ -143,12 +144,15 @@ def _sequence_entry():
 
 @functools.lru_cache(maxsize=None)
 def _backward_entry():
-    fn = build.load("lstm_cell").repro_lstm_sequence_backward
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 \
-        + [ctypes.c_void_p]
+    lib = build.load("lstm_cell")
+    fn = lib.repro_lstm_sequence_backward
+    fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_longlong] \
+        + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    return fn
-
+    ws = lib.repro_lstm_sequence_backward_workspace
+    ws.argtypes = [ctypes.c_int] * 3
+    ws.restype = ctypes.c_longlong
+    return fn, ws
 
 
 def _wants_grad(*tensors) -> bool:
@@ -250,12 +254,17 @@ class _LSTMSequence(torch.autograd.Function):
                                                return_sequence=True,
                                                train=True)
         ctx.save_for_backward(xs, wx, wh, hs, gates, cs)
+        # an output the loss does not reach comes back as None, not zeros
+        ctx.set_materialize_grads(False)
         return h, c, hs
 
     @staticmethod
     def backward(ctx, dh, dc, dhs):
         xs, wx, wh, hs, gates, cs = ctx.saved_tensors
-        return lstm_sequence_backward(xs, wx, wh, hs, gates, cs, dh, dc, dhs)
+        # the first layer's xs are data: no dxs
+        return lstm_sequence_backward(
+            xs, wx, wh, hs, gates, cs, dh, dc, dhs,
+            need_dxs=ctx.needs_input_grad[0])
 
 
 def lstm_sequence(xs: torch.Tensor, wx: torch.Tensor, wh: torch.Tensor,
@@ -331,10 +340,11 @@ def lstm_sequence_train(xs, wx, wh, b):
 
 
 def _products(xs, wx, hs, dgates):
-    """The products off the chain, from the pre-activation gate gradients
-    dgates (T, B, 4H) float32: dxs = dG wx^T, dwx = sum_t x_t^T dG_t,
-    dwh = sum_t h_{t-1}^T dG_t (h_{-1} = 0), db = sum_t dG_t; float32
-    matrix products over the T B rows, in the inputs' dtypes."""
+    """The plain version's products off the chain, from the
+    pre-activation gate gradients dgates (T, B, 4H) float32: dxs = dG
+    wx^T, dwx = sum_t x_t^T dG_t, dwh = sum_t h_{t-1}^T dG_t (h_{-1} = 0),
+    db = sum_t dG_t; float32 matrix products over the T B rows, in the
+    inputs' dtypes."""
     f32 = torch.float32
     t_len, bsz, i_dim = xs.shape
     h_dim = hs.shape[2]
@@ -351,8 +361,8 @@ def _products(xs, wx, hs, dgates):
 
 def lstm_sequence_backward_plain(xs, wx, wh, hs, gates, cs, dh=None,
                                  dc=None, dhs=None):
-    """The backward kernel's function in plain PyTorch, written from the
-    formulas (csrc/lstm_cell.cu, `lstm_sequence_bwd_kernel`): the chain
+    """The backward kernels' function in plain PyTorch, written from the
+    formulas (csrc/lstm_cell.cu, `lstm_bwd_fused_kernel`): the chain
     t = T-1 ... 0 over the training forward's record, then `_products`.
     dh, dc (B, H) and dhs (T, B, H) are the upstream gradients of h_T, c_T
     and hs (None: zero). float32 math; returns (dxs, dwx, dwh, db) in the
@@ -387,17 +397,19 @@ def lstm_sequence_backward(xs: torch.Tensor, wx: torch.Tensor,
                            gates: torch.Tensor, cs: torch.Tensor,
                            dh: torch.Tensor | None = None,
                            dc: torch.Tensor | None = None,
-                           dhs: torch.Tensor | None = None):
+                           dhs: torch.Tensor | None = None, *,
+                           need_dxs: bool = True):
     """The gradient of `lstm_sequence` at (xs, wx, wh, b), from the
     training forward's record (hs, gates, cs as `lstm_sequence_train`
     gives them) and the upstream gradients dh, dc (B, H) of h_T and c_T
     and dhs (T, B, H) of hs, each None for zero. Returns (dxs, dwx, dwh,
-    db) in the inputs' dtypes. On the card: one launch of the kernel for
-    the chain over t (the gate gradients), counted in
-    `lstm_sequence_backward.launches`, then `_products`' matrix products;
-    on the CPU, `lstm_sequence_backward_plain`."""
+    db) in the inputs' dtypes; dxs None unless `need_dxs`. On the card:
+    two launches, the fused chain and products, then the fixed-order sum
+    of the batch rows' partials (a second call is bit-equal), counted once
+    in `lstm_sequence_backward.launches`; no library call. On the CPU,
+    `lstm_sequence_backward_plain`."""
     _check_sequence(xs, wx, wh, None)
-    t_len, bsz, _ = xs.shape
+    t_len, bsz, i_dim = xs.shape
     h_dim = wh.shape[0]
     upstream = {"dh": (dh, (bsz, h_dim)), "dc": (dc, (bsz, h_dim)),
                 "dhs": (dhs, (t_len, bsz, h_dim))}
@@ -406,11 +418,13 @@ def lstm_sequence_backward(xs: torch.Tensor, wx: torch.Tensor,
         if t is not None:
             if t.shape != shape or t.device != xs.device:
                 raise ValueError(f"{name} must be {shape} on {xs.device}")
-            t = t.to(xs.dtype).contiguous()
+            if t.dtype != xs.dtype or not t.is_contiguous():
+                t = t.to(xs.dtype).contiguous()
         ups[name] = t
     if xs.device.type == "cpu":
-        return lstm_sequence_backward_plain(xs, wx, wh, hs, gates, cs,
-                                            **ups)
+        grads = lstm_sequence_backward_plain(xs, wx, wh, hs, gates, cs,
+                                             **ups)
+        return (grads[0] if need_dxs else None,) + grads[1:]
     build.check_card("lstm_sequence_backward", xs)
     for name, t, shape in (("hs", hs, (t_len, bsz, h_dim)),
                            ("gates", gates, (t_len, bsz, 4 * h_dim)),
@@ -419,25 +433,37 @@ def lstm_sequence_backward(xs: torch.Tensor, wx: torch.Tensor,
                 or not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous {shape} on "
                              f"{xs.device}")
+    if hs.dtype != xs.dtype:
+        raise TypeError(f"hs must be {xs.dtype}")
     if gates.dtype != torch.float32 or cs.dtype != torch.float32:
         raise TypeError("gates and cs must be float32")
     if h_dim > MAX_SEQUENCE_HIDDEN:
         raise ValueError(f"hidden size {h_dim} exceeds the backward "
                          f"kernel's {MAX_SEQUENCE_HIDDEN}")
-    dgates = torch.empty_like(gates)
+    dxs = torch.empty_like(xs) if need_dxs else None
+    dwx, dwh = torch.empty_like(wx), torch.empty_like(wh)
+    db = wx.new_empty((4, h_dim))
     if gates.numel() == 0:
-        return _products(xs, wx, hs, dgates)
-    stream = torch.cuda.current_stream(xs.device).cuda_stream
+        for t in (dxs, dwx, dwh, db):
+            if t is not None:
+                t.zero_()
+        return dxs, dwx, dwh, db
+    entry, ws_floats = _backward_entry()
+    n_ws = ws_floats(bsz, i_dim, h_dim)
+    # the batch rows' partial [dwx; dwh; db], summed by the second launch
+    ws = torch.empty(n_ws, dtype=torch.float32, device=xs.device)
+    stream = torch.cuda.current_stream().cuda_stream  # xs's, checked above
     ptr = (lambda t: None if t is None else t.data_ptr())
-    err = _backward_entry()(wh.data_ptr(), gates.data_ptr(), cs.data_ptr(),
-                            ptr(ups["dhs"]), ptr(ups["dh"]), ptr(ups["dc"]),
-                            dgates.data_ptr(), t_len, bsz, h_dim,
-                            int(xs.dtype == torch.bfloat16), stream)
+    err = entry(xs.data_ptr(), wx.data_ptr(), wh.data_ptr(), hs.data_ptr(),
+                gates.data_ptr(), cs.data_ptr(), ptr(ups["dhs"]),
+                ptr(ups["dh"]), ptr(ups["dc"]), ptr(dxs), dwx.data_ptr(),
+                dwh.data_ptr(), db.data_ptr(), ws.data_ptr(), n_ws, t_len,
+                bsz, i_dim, h_dim, int(xs.dtype == torch.bfloat16), stream)
     if err:
         raise RuntimeError(f"lstm_sequence_backward kernel launch failed: "
                            f"CUDA error {err}")
     lstm_sequence_backward.launches += 1
-    return _products(xs, wx, hs, dgates)
+    return dxs, dwx, dwh, db
 
 
 lstm_sequence_backward.launches = 0

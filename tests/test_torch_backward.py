@@ -90,6 +90,119 @@ def test_lstm_backward_plain_matches_jax_grad(shape):
                                    err_msg=name)
 
 
+def _fused_order_model(xs, wx, wh, hs, gates, cs, dh, dc, dhs):
+    """The card's `lstm_sequence_backward` (csrc/lstm_cell.cu,
+    `lstm_bwd_fused_kernel` and `lstm_bwd_reduce_kernel`) in plain torch,
+    float32, in the kernels' order of arithmetic (a multiply-add where the
+    kernel fuses one): the chain's factors as the kernel forms them; dh_next
+    for H <= 32 as four sums per gate, one per residue of the unit mod 4,
+    each over the units in order, then the residues and the gates summed
+    pairwise, and for H > 32 as 32 lanes' sums (gate, then units l, l + 32,
+    ...) summed by a butterfly; each batch row's partial [dwx; dwh; db]
+    accumulated over t = T-1 ... 0; the rows summed over b = 0 ... B-1;
+    dxs summed over the gate columns in order."""
+    t_len, bsz, i_dim = xs.shape
+    h_dim = wh.shape[0]
+    g_dim = 4 * h_dim
+    whf = wh.reshape(h_dim, 4, h_dim)               # [j, g, m]
+    zero = torch.zeros(bsz, h_dim)
+    dhn = zero if dh is None else dh.clone()
+    dcar = zero if dc is None else dc.clone()
+    # per row: u_t = [x_t, h_{t-1}, 1] (K = I + H + 1) against dG_t (4H)
+    part = torch.zeros(bsz, i_dim + h_dim + 1, g_dim)
+    dgs = torch.empty(t_len, bsz, g_dim)
+    for t in range(t_len - 1, -1, -1):
+        ig, fg, gg, og = torch.chunk(gates[t], 4, dim=-1)
+        tc = torch.tanh(cs[t])
+        cp = cs[t - 1] if t > 0 else zero
+        up = zero if dhs is None else dhs[t]
+        d_h = dhn + up
+        dcar = dcar + d_h * (og * (1.0 - tc * tc))
+        dg = torch.cat([dcar * (gg * ig * (1.0 - ig)),
+                        dcar * (cp * fg * (1.0 - fg)),
+                        dcar * (ig * (1.0 - gg * gg)),
+                        d_h * (tc * og * (1.0 - og))], dim=-1)
+        dcar = dcar * fg
+        dgs[t] = dg
+        terms = dg.reshape(bsz, 1, 4, h_dim) * whf[None]  # [b, j, g, m]
+        if h_dim <= 32:
+            acc = torch.zeros(bsz, h_dim, 4, 4)
+            for m in range(h_dim):
+                acc[..., m % 4] = acc[..., m % 4] + terms[..., m]
+            gsum = (acc[..., 0] + acc[..., 1]) + (acc[..., 2] + acc[..., 3])
+            dhn = (gsum[..., 0] + gsum[..., 1]) + (gsum[..., 2] + gsum[..., 3])
+        else:
+            lanes = torch.zeros(bsz, h_dim, 32)
+            for g in range(4):
+                for m0 in range(0, h_dim, 32):
+                    n = min(32, h_dim - m0)
+                    lanes[..., :n] = lanes[..., :n] + terms[:, :, g, m0:m0 + n]
+            for half in (16, 8, 4, 2, 1):
+                lanes = lanes[..., :half] + lanes[..., half:2 * half]
+            dhn = lanes[..., 0]
+        h_prev = hs[t - 1] if t > 0 else zero
+        u = torch.cat([xs[t], h_prev, torch.ones(bsz, 1)], dim=-1)
+        part = part + u[:, :, None] * dg[:, None, :]
+    total = torch.zeros_like(part[0])
+    for b in range(bsz):
+        total = total + part[b]
+    wxf = wx.reshape(i_dim, g_dim)
+    dxs = torch.zeros(t_len, bsz, i_dim)
+    for n in range(g_dim):
+        dxs = dxs + dgs[..., n, None] * wxf[:, n]
+    return (dxs, total[:i_dim].reshape(i_dim, 4, h_dim),
+            total[i_dim:i_dim + h_dim].reshape(h_dim, 4, h_dim),
+            total[-1].reshape(4, h_dim))
+
+
+@pytest.mark.parametrize("upstream", ["h", "all"])
+@pytest.mark.parametrize("t_len", [1, 48])
+@pytest.mark.parametrize("shape", [(32, 76, 16), (32, 17, 8), (32, 76, 32),
+                                   (32, 130, 256)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_lstm_backward_fused_order_matches_jax_grad(shape, t_len, upstream):
+    """`_fused_order_model` against jax.grad of the reference's
+    `lstm_cell_reference` scanned from zeros (upstream on h_T alone, or on
+    h_T, c_T and hs) and against lstm_sequence_backward_plain, both at
+    LSTM_TOL: the kernels' order of summation keeps the plain version's
+    accuracy. At H = 256 the absolute part of the bar is LSTM_TOL times
+    each gradient's largest entry (at least 1): there dwx and db sum
+    1,536 products into entries up to ~50, and the plain version itself
+    misses the unscaled bar against JAX (7 of dwx's 133,120 entries at
+    T = 48, up to 3.1e-5 apart); model and plain differ by up to 2.6e-5."""
+    b, i, h = shape
+    args, ups = _lstm_inputs((t_len, b, i, h), sum(shape) + t_len)
+    if upstream == "h":
+        ups = [ups[0], np.zeros_like(ups[1]), np.zeros_like(ups[2])]
+
+    def loss(xs, wx, wh, bias):
+        def step(carry, xt):
+            hh, cc = jref.lstm_cell_reference(
+                xt, *carry, wx.reshape(i, 4 * h), wh.reshape(h, 4 * h),
+                bias.reshape(4 * h))
+            return (hh, cc), hh
+        zero = jnp.zeros((b, h), jnp.float32)
+        (h_t, c_t), hs = jax.lax.scan(step, (zero, zero), xs)
+        return (jnp.sum(h_t * ups[0]) + jnp.sum(c_t * ups[1])
+                + jnp.sum(hs * ups[2]))
+
+    want = jax.grad(loss, argnums=(0, 1, 2, 3))(*map(jnp.asarray, args))
+    xs, wx, wh, bias = (torch.as_tensor(a) for a in args)
+    _, _, hs, gates, cs = lstm_sequence_train_plain(xs, wx, wh, bias)
+    up_t = [torch.as_tensor(u) for u in ups]
+    if upstream == "h":
+        up_t = [up_t[0], None, None]
+    got = _fused_order_model(xs, wx, wh, hs, gates, cs, *up_t)
+    plain = lstm_sequence_backward_plain(xs, wx, wh, hs, gates, cs, *up_t)
+    for name, g, w, p in zip(("dxs", "dwx", "dwh", "db"), got, want, plain):
+        w = np.asarray(w)
+        atol = LSTM_TOL * (max(1.0, float(np.abs(w).max())) if h > 32
+                           else 1.0)
+        np.testing.assert_allclose(g.numpy(), w, atol=atol, rtol=LSTM_TOL,
+                                   err_msg=name)
+        torch.testing.assert_close(g, p, atol=atol, rtol=LSTM_TOL, msg=name)
+
+
 @pytest.mark.parametrize("which", ["h", "c", "hs", "all"])
 def test_lstm_backward_plain_matches_autograd(which):
     """Each upstream gradient alone (the others None, a zero gradient),

@@ -630,18 +630,22 @@ def _lstm_record(shape, t_len, dtype, seed, cuda):
             [u.to(cuda, dtype) for u in ups])
 
 
+ICU_TRAIN_SHAPES = [(32, 76, 16), (32, 17, 8), (32, 76, 32)]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
-@pytest.mark.parametrize("t_len", [1, 48])
-@pytest.mark.parametrize("shape", SHAPES + [(32, 76, 16), (32, 17, 8),
-                                            (32, 76, 32)],
+@pytest.mark.parametrize("t_len", [1, 48, 130])
+@pytest.mark.parametrize("shape", SHAPES + ICU_TRAIN_SHAPES,
                          ids=lambda s: "x".join(map(str, s)))
 def test_lstm_sequence_backward_kernel_matches_plain(cuda, shape, t_len,
                                                      dtype):
     """The training forward's record (hs, gates, cs) against the plain
-    training forward's, then the backward kernel against
+    training forward's, then the backward kernels against
     lstm_sequence_backward_plain on the kernel's record with upstream
-    gradients on h_T, c_T and hs."""
+    gradients on h_T, c_T and hs (T = 130: the chunk ring wraps many
+    times); a second call bit-equal to the first (no atomics), and a call
+    without dxs giving the same weight gradients bit for bit."""
     from repro_torch.kernels.lstm_cell import (
         lstm_sequence_backward, lstm_sequence_backward_plain,
         lstm_sequence_train, lstm_sequence_train_plain)
@@ -657,12 +661,50 @@ def test_lstm_sequence_backward_kernel_matches_plain(cuda, shape, t_len,
     grads = lstm_sequence_backward(xs, wx, wh, *rec[2:], *ups)
     torch.cuda.synchronize()
     assert lstm_sequence_backward.launches == before + 1
+    again = lstm_sequence_backward(xs, wx, wh, *rec[2:], *ups)
+    no_dxs = lstm_sequence_backward(xs, wx, wh, *rec[2:], *ups,
+                                    need_dxs=False)
     plain = lstm_sequence_backward_plain(xs, wx, wh, *rec[2:], *ups)
     tol = GRAD_F32_TOL if dtype == torch.float32 else GRAD_BF16_TOL
     for got, exp in zip(grads, plain):
         assert got.dtype == dtype
         torch.testing.assert_close(got.float(), exp.float(), atol=tol,
                                    rtol=tol)
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))
+    assert no_dxs[0] is None
+    assert all(torch.equal(a, b) for a, b in zip(grads[1:], no_dxs[1:]))
+
+
+@pytest.mark.parametrize("need_dxs", [True, False])
+@pytest.mark.parametrize("shape", ICU_TRAIN_SHAPES + [(32, 130, 256)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_lstm_sequence_backward_is_two_hand_written_launches(cuda, shape,
+                                                             need_dxs):
+    """One call of lstm_sequence_backward runs at most two device kernels,
+    the fused kernel and the reduction, and none from cuBLAS or cuDNN
+    (counted over 20 calls: the profiler can drop a record of a window
+    this short)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels.lstm_cell import (lstm_sequence_backward,
+                                               lstm_sequence_train)
+    args, ups = _lstm_record(shape, 48, torch.float32, sum(shape), cuda)
+    rec = lstm_sequence_train(*args)
+    call = (args[0], args[1], args[2], *rec[2:], ups[0])
+    lstm_sequence_backward(*call, need_dxs=need_dxs)
+    torch.cuda.synchronize()
+    calls = 20
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            lstm_sequence_backward(*call, need_dxs=need_dxs)
+        torch.cuda.synchronize()
+    counts = {e.key: e.count for e in prof.key_averages()
+              if e.device_type != DeviceType.CPU}
+    assert 0 < sum(counts.values()) <= 2 * calls, counts
+    assert all("lstm_bwd" in n for n in counts), counts
+    assert not any(w in n.lower() for n in counts
+                   for w in ("gemm", "cublas", "cudnn")), counts
 
 
 @pytest.mark.parametrize("depth", [1, 2])

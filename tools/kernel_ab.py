@@ -15,6 +15,12 @@ process per checkout:
   * `ssm_scan_backward` at zamba2-2.7b's training shape (SSM_TRAIN) and
     `mlstm_chunk_backward` at xlstm-350m's (MLSTM_TRAIN), bf16, with a
     cotangent on y alone, by CUDA-graph replay, beside their bounds;
+  * the float32 `lstm_sequence_backward` at the three ICU training shapes
+    (B = 32, T = 48) by CUDA-graph replay: the call chip_smoke.py's phase 7
+    times (h_T's gradient, zeros on c_T and the sequence, dxs computed)
+    and, where the tree's wrapper takes `need_dxs`, the offline phase's
+    call (h_T's gradient alone, no dxs), beside the bound and
+    `serial_bwd_estimate`;
   * a hash of the SASS of every kernel in every built library
     (`cuobjdump -sass`, the instructions without their addresses and
     encodings), keyed by mangled name, and of a second build of each
@@ -181,6 +187,49 @@ def scan_backward_times(torch, cs, cuda, card, name):
     return out
 
 
+def lstm_backward_times(torch, cs, cuda, card, name):
+    """Graph-replayed float32 `lstm_sequence_backward` at the ICU training
+    shapes: phase 7's call and, where the wrapper takes `need_dxs`, the
+    offline phase's; beside the bound and the serial estimate."""
+    import inspect
+
+    from repro_torch.kernels.lstm_cell import (lstm_sequence_backward,
+                                               lstm_sequence_train)
+    offline = "need_dxs" in inspect.signature(
+        lstm_sequence_backward).parameters
+    out = {}
+    for k, shape in enumerate(cs.TRAIN_LSTM_SHAPES[:3]):
+        b, _, h = shape
+        args = cs.sequence_inputs(torch, shape, cs.ICU_T, cuda, seed=1100 + k)
+        rec = lstm_sequence_train(*args)
+        dh = torch.randn(b, h, device=cuda)
+        call = (args[0], args[1], args[2], *rec[2:], dh,
+                torch.zeros(b, h, device=cuda),
+                torch.zeros(cs.ICU_T, b, h, device=cuda))
+        row = {"case": list(shape),
+               "kernel": timed(torch, cs, lambda: lstm_sequence_backward(
+                   *call), 100),
+               "bound_ms": max(cs.sequence_bwd_bound(shape, cs.ICU_T)),
+               "serial_ms": cs.serial_bwd_estimate(shape, cs.ICU_T)}
+        if offline:
+            row["offline_call"] = timed(
+                torch, cs, lambda: lstm_sequence_backward(
+                    *call[:7], need_dxs=False), 100)
+        out[str(shape)] = row
+        off = (f"; the offline phase's call median "
+               f"{row['offline_call']['median']:.6f} ms (range "
+               f"{row['offline_call']['min']:.6f}-"
+               f"{row['offline_call']['max']:.6f})" if offline else "")
+        print(f"[{card}] {name} lstm_sequence_backward float32 {shape} "
+              f"T={cs.ICU_T}: median {row['kernel']['median']:.6f} ms "
+              f"(range {row['kernel']['min']:.6f}-"
+              f"{row['kernel']['max']:.6f}, {REPEATS} measurements){off}, "
+              f"bound {row['bound_ms']:.6f} ms, serial estimate "
+              f"{row['serial_ms']:.6f} ms", flush=True)
+        del args, rec, call
+    return out
+
+
 def flash_rows(torch, cs, flash_attention, flash_attention_plain, cuda):
     """Phase 3's bf16 flash checks: per case, max |kernel - plain|, the
     largest row's relative L2 error, and whether each bar holds."""
@@ -242,6 +291,8 @@ def run_one(tree: Path, flash: bool) -> dict:
     res["flash_graph_ms"] = flash_times(torch, cs, cuda, res["card"],
                                         tree.name)
     res["scan_backward_graph_ms"] = scan_backward_times(
+        torch, cs, cuda, res["card"], tree.name)
+    res["lstm_backward_graph_ms"] = lstm_backward_times(
         torch, cs, cuda, res["card"], tree.name)
     res["sass"] = all_sass(build)
     again = rebuilt_sass(build)
