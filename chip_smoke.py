@@ -33,7 +33,10 @@ Phases, each of which raises on failure:
      one mixtral-8x7b MoE layer (router flips reported with their
      margins), llama-3.2-vision-11b's group (4 ATTN + CROSS) and
      seamless-m4t-large-v2 (one encoder and one decoder layer), all at
-     full width in float32;
+     full width in float32; the zamba2 and xlstm groups' gradients again
+     with `build_model(cfg, remat=True)` (the group recomputed in the
+     backward: its forward kernels launched twice) against those without
+     remat on the card, and whether they are bit-equal;
   5. the device tabu search on CUDA against the same search on the CPU,
      identical on integer instances: the round regime, the pass regime
      (background-heavy ragged batches with frozen jobs and reservations),
@@ -43,7 +46,10 @@ Phases, each of which raises on failure:
      it and read just after:
      a. `repro_torch.launch.serve.run(patients=100)`: calibrate, strategy
         table, lower bound, execution (lstm_sequence, one launch per ICU
-        inference and layer; no lstm_cell step);
+        inference and layer; no lstm_cell step); then the paper's pipeline,
+        `repro_torch.examples.serve_hierarchical` with its defaults (the
+        offline phase, then 12 patients; lstm_sequence forward and
+        backward);
      b. `ServingEngine(build_model(get_config("zamba2-2.7b"))).generate`
         at full width and depth in bf16: 4 prompts of 512 tokens, 32
         greedy steps (flash_attention, ssm_scan);
@@ -80,6 +86,13 @@ Phases, each of which raises on failure:
         + 21 mlstm_chunk launches an xlstm step), step 0's batch scoring
         lower after the last step than under the initial weights, one
         more step of each traced;
+     h. zamba2-2.7b's loss and gradients on 6g's weights at 4 x 1024,
+        built with and without remat: time (CUDA events, median of 3),
+        peak memory (the remat peak must be lower), launches (with remat
+        90 ssm_scan and 18 flash forwards, 45 and 9 backwards) and equal
+        losses; then the longest length that fits at batch 4 for each
+        setting (2048 ... 8192, and 16384 with remat), each ladder ending
+        at its first out-of-memory error;
   7. timings with CUDA events (and by CUDA-graph replay, the device time
      alone, for each kernel at its main-path shape), each printed beside
      the card's name and power limit (flash_attention also at each of
@@ -348,6 +361,17 @@ MLSTM_GRAD_CASES = [(1, 40, 3, 80), (2, 300, 4, 512), MLSTM_TRAIN]
 # mlstm_chunk forward and backward per mLSTM block (21)
 SCAN_TRAIN = {"zamba2-2.7b": (4, 1024), "xlstm-350m": (8, 1024)}
 SCAN_TRAIN_STEPS = 3
+# phase 6h: zamba2-2.7b's loss and gradients on phase 6g's trained weights
+# at REMAT_BATCH x REMAT_SEQ, built with and without remat (each group
+# recomputed in the backward: its forward kernels launched twice), timed
+# REMAT_REPS times by CUDA events (median); then at batch REMAT_BATCH the
+# ladder of lengths, each setting up to its first out-of-memory error
+REMAT_BATCH, REMAT_SEQ, REMAT_REPS = 4, 1024, 3
+REMAT_LADDER = {False: (2048, 4096, 8192), True: (2048, 4096, 8192, 16384)}
+# phase 6a's neighbour: the paper's pipeline, examples/serve_hierarchical
+# on the port (the offline phase, 60 steps per ICU workload, then
+# serve.run on its default 12 patients)
+HIER_PATIENTS = 12
 # fleet planning: the reference contention benchmark's fleet (4 cloud + 2
 # edge machines, benchmarks/scheduler_scale.py bench_contention) and
 # run_wards at 32 wards x 100 patients; the contention search held
@@ -1914,6 +1938,22 @@ def check_icu_grads(torch, cuda, kernels):
                                f"missing or wrong")
 
 
+def loss_and_grads(torch, kernels, model, params, batch):
+    """`model.loss` and the gradient of every leaf of `params` on the
+    card: (loss, gradients, {kernel: launches})."""
+    ls = list(leaves(params))
+    for t in ls:
+        t.requires_grad_(True)
+    before = {n: k.launches for n, k in kernels.items()}
+    loss = model.loss(params, batch)
+    grads = torch.autograd.grad(loss, ls)
+    torch.cuda.synchronize()
+    for t in ls:
+        t.requires_grad_(False)
+    return (loss.detach(), grads,
+            {n: k.launches - before[n] for n, k in kernels.items()})
+
+
 def grads_card_vs_cpu(torch, model, p_gpu, batch, kernels, label):
     """The gradient of `model.loss` on the card from `p_gpu` (float32)
     and on the CPU from a copy, on `batch`: raises unless every leaf's
@@ -1924,18 +1964,9 @@ def grads_card_vs_cpu(torch, model, p_gpu, batch, kernels, label):
     p_cpu = tree_to(p_gpu, "cpu")
     out = {}
     for dev, p in ((cuda, p_gpu), (torch.device("cpu"), p_cpu)):
-        ls = list(leaves(p))
-        for t in ls:
-            t.requires_grad_(True)
-        b = {k: v.to(dev) for k, v in batch.items()}
-        before = {n: k.launches for n, k in kernels.items()}
-        loss = model.loss(p, b)
-        grads = torch.autograd.grad(loss, ls)
-        torch.cuda.synchronize()
-        launched = {n: k.launches - before[n] for n, k in kernels.items()}
-        out[dev] = (float(loss.detach()), grads, launched)
-        for t in ls:
-            t.requires_grad_(False)
+        loss, grads, launched = loss_and_grads(
+            torch, kernels, model, p, {k: v.to(dev) for k, v in batch.items()})
+        out[dev] = (float(loss), grads, launched)
     out["cuda"], out["cpu"] = out[cuda], out[torch.device("cpu")]
     worst, bad = 0.0, 0
     for g, c in zip(out["cuda"][1], out["cpu"][1]):
@@ -1987,6 +2018,200 @@ def step_breakdown(prof):
     return kinds
 
 
+def check_remat_one_group(torch, kernels, label, cfg, seed, kinds):
+    """Phase 4's remat check: one group at full width, float32, noised
+    weights (the seeds of the card-against-CPU gradient check), the loss
+    and every gradient of `build_model(cfg, remat=True)` against those of
+    `build_model(cfg)` on the card, each leaf within GRAD_ONE_GROUP_TOL of
+    its largest entry and the losses equal; the leaves bit-equal are
+    counted. Launches: each of `kinds`' forward twice under remat (the
+    group recomputed in the backward), its backward once."""
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.models import build_model
+    cuda = torch.device("cuda")
+    plain, remat = build_model(cfg), build_model(cfg, remat=True)
+    p = noised(torch, plain.init(torch.Generator(cuda).manual_seed(seed),
+                                 device=cuda), seed=seed + 10)
+    batch = {k: v.to(cuda)
+             for k, v in make_batch(cfg, 1, 128, seed=seed).items()}
+    loss, grads, launched = loss_and_grads(torch, kernels, plain, p, batch)
+    loss_r, grads_r, launched_r = loss_and_grads(torch, kernels, remat, p,
+                                                 batch)
+    worst, bad, same = 0.0, 0, 0
+    for g, r in zip(grads, grads_r):
+        if not bool(torch.isfinite(r).all()):
+            bad += 1
+        worst = max(worst, float((r - g).abs().max())
+                    / max(float(g.abs().max()), 1e-30))
+        same += bool(torch.equal(r, g))
+    n = len(grads)
+    print(f"{label} remat gradient, float32, noised, tokens (1, 128): loss "
+          f"{float(loss_r):.6f} with remat, {float(loss):.6f} without "
+          f"(equal: {bool(torch.equal(loss_r, loss))}); {n} leaves, {same} "
+          f"bit-equal to the gradients without remat, {bad} not finite; "
+          f"max over leaves of max "
+          f"|remat - plain| / max |plain| = {worst:.3e} (<= "
+          f"{GRAD_ONE_GROUP_TOL}); launches with remat {launched_r}, "
+          f"without {launched}")
+    if bad or not worst <= GRAD_ONE_GROUP_TOL or \
+            not torch.equal(loss_r, loss):
+        raise RuntimeError(f"{label}: remat gradients differ")
+    want = {n: 0 for n in kernels}
+    for kind, per_group in kinds.items():
+        want[kind], want[f"{kind}_backward"] = per_group, per_group
+    expect_launches(f"{label} without remat", launched, want)
+    want.update({kind: 2 * c for kind, c in kinds.items()})
+    expect_launches(f"{label} with remat", launched_r, want)
+
+
+def drive_remat(torch, kernels, card, cfg, params):
+    """Phase 6h: zamba2-2.7b at full width and depth in bf16 on phase 6g's
+    trained weights (no optimizer state held), loss and gradients of
+    `build_model(cfg)` and `build_model(cfg, remat=True)` on step 0's
+    batch at REMAT_BATCH x REMAT_SEQ, every counter set to 0 just before
+    each first run and read just after: the peak device memory
+    (max_memory_allocated after a reset, less what was held before), the
+    launches (remat: each ssm_scan and flash forward twice), the losses
+    equal, then REMAT_REPS more runs timed by CUDA events (median). Raises
+    unless the remat peak is below the other. Then the ladder of lengths
+    at batch REMAT_BATCH (REMAT_LADDER), one run each, each setting until
+    its first torch.OutOfMemoryError, caught at that call alone. Returns
+    {setting: launches of its first run}."""
+    import gc
+
+    from repro_torch.launch import train
+    from repro_torch.models import build_model
+    from repro_torch.training import train_loop
+    cuda = torch.device("cuda")
+    t_phase = time.perf_counter()
+    held = torch.cuda.memory_allocated()
+    out, losses, peaks = {}, {}, {}
+    for remat in (False, True):
+        model = build_model(cfg, remat=remat)
+        batch = next(train.make_batches(cfg, REMAT_BATCH, REMAT_SEQ, 0, cuda))
+        gc.collect()
+        torch.cuda.empty_cache()
+        for k in kernels.values():
+            k.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        loss, grads = train_loop._grads_of(model, params, batch)
+        torch.cuda.synchronize()
+        out[remat] = {n: k.launches for n, k in kernels.items()}
+        peaks[remat] = torch.cuda.max_memory_allocated() - held
+        losses[remat] = float(loss)
+        del loss, grads
+        ms = []
+        for _ in range(REMAT_REPS):
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            start.record()
+            loss, grads = train_loop._grads_of(model, params, batch)
+            end.record()
+            torch.cuda.synchronize()
+            ms.append(start.elapsed_time(end))
+            del loss, grads
+        print(f"[{card}] zamba2-2.7b loss + gradients {REMAT_BATCH} x "
+              f"{REMAT_SEQ}, bf16, remat={remat}: "
+              f"{statistics.median(ms):.2f} ms (median of {REMAT_REPS}, "
+              f"CUDA events: {[round(x, 2) for x in ms]}), peak device "
+              f"memory {peaks[remat] / 1e9:.2f} GB (max_memory_allocated "
+              f"less the {held / 1e9:.2f} GB held before), loss "
+              f"{losses[remat]:.6f}, launches {out[remat]}")
+    groups = cfg.num_groups
+    mamba = list(cfg.group_pattern).count("mamba") * groups
+    want = {n: 0 for n in kernels}
+    want.update(ssm_scan=mamba, ssm_scan_backward=mamba,
+                flash_attention=groups, flash_attention_backward=groups)
+    expect_launches("zamba2-2.7b without remat", out[False], want)
+    want.update(ssm_scan=2 * mamba, flash_attention=2 * groups)
+    expect_launches("zamba2-2.7b with remat", out[True], want)
+    if losses[True] != losses[False]:
+        raise RuntimeError(f"zamba2-2.7b: loss {losses[True]} with remat, "
+                           f"{losses[False]} without")
+    if not peaks[True] < peaks[False]:
+        raise RuntimeError(f"zamba2-2.7b: remat peak {peaks[True]} is not "
+                           f"below {peaks[False]}")
+    print(f"[{card}] zamba2-2.7b remat at {REMAT_BATCH} x {REMAT_SEQ}: peak "
+          f"{peaks[True] / 1e9:.2f} GB against {peaks[False] / 1e9:.2f} GB "
+          f"({peaks[True] / peaks[False]:.3f}x)")
+    for remat, lengths in REMAT_LADDER.items():
+        model = build_model(cfg, remat=remat)
+        fits = REMAT_SEQ
+        for seq in lengths:
+            batch = next(train.make_batches(cfg, REMAT_BATCH, seq, 0, cuda))
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            try:
+                loss, grads = train_loop._grads_of(model, params, batch)
+                torch.cuda.synchronize()
+            except torch.OutOfMemoryError as e:
+                print(f"[{card}] zamba2-2.7b ladder remat={remat}: "
+                      f"{REMAT_BATCH} x {seq} does not fit "
+                      f"({str(e).splitlines()[0][:120]}); end of the ladder")
+                break
+            secs = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated() - held
+            print(f"[{card}] zamba2-2.7b ladder remat={remat}: {REMAT_BATCH}"
+                  f" x {seq} fits, loss {float(loss):.4f}, loss + gradients "
+                  f"{secs:.3f} s (host clock after a synchronise, first "
+                  f"run), peak {peak / 1e9:.2f} GB")
+            del loss, grads, batch
+            fits = seq
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"[{card}] zamba2-2.7b ladder remat={remat}: longest length "
+              f"that fits at batch {REMAT_BATCH}: {fits} tokens (of "
+              f"{(REMAT_SEQ,) + lengths})")
+    print(f"phase 6h: {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+def drive_serve_hierarchical(torch, kernels, card):
+    """Phase 6a's neighbour: `repro_torch.examples.serve_hierarchical`'s
+    main on the card with its defaults (the offline phase, 60 steps per
+    ICU workload, then serve.run on HIER_PATIENTS patients), every counter
+    set to 0 just before and read just after. Raises unless "ours" is
+    within the lower bound and every baseline, every job ran, the offline
+    losses are finite, and the launches are the offline phase's (one
+    lstm_sequence forward and backward a step, one forward per held-out
+    scoring) and serving's (one lstm_sequence per inference and layer).
+    Returns the launches."""
+    import numpy as np
+
+    from repro_torch.configs.icu_lstm import ICU_WORKLOADS
+    from repro_torch.examples import serve_hierarchical
+    for k in kernels.values():
+        k.launches = 0
+    t0 = time.perf_counter()
+    trained, (results, lb) = serve_hierarchical.main([])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launched = {n: k.launches for n, k in kernels.items()}
+    ours = results["ours (algorithm 2)"]
+    print(f"[{card}] examples.serve_hierarchical on the card: {secs:.3f} s "
+          f"(host clock, offline phase and serving), ours weighted "
+          f"{ours.weighted_sum:.0f}, lower bound {lb:.0f}, "
+          f"{len(ours.entries)} jobs; launches {launched}")
+    losses = [x for res in trained.values() for x in res["losses"]]
+    if not np.isfinite(losses).all() or len(trained) != len(ICU_WORKLOADS):
+        raise RuntimeError("serve_hierarchical: offline phase failed")
+    if not ours.weighted_sum >= lb - 1e-9 or \
+            len(ours.entries) != HIER_PATIENTS or any(
+                ours.weighted_sum > s.weighted_sum + 1e-9
+                for s in results.values()):
+        raise RuntimeError("serve_hierarchical: ours breaks the bound or "
+                           "a baseline, or jobs are missing")
+    steps = ICU_TRAIN_STEPS * len(ICU_WORKLOADS)
+    depth = ICU_WORKLOADS[0].depth
+    expect_launches("serve_hierarchical", launched, dict(
+        {n: 0 for n in kernels}, lstm_sequence_backward=steps,
+        lstm_sequence=steps + len(ICU_WORKLOADS)
+        + (HIER_PATIENTS + 2 * len(ICU_WORKLOADS)) * depth))
+    return launched
+
+
 def drive_training(torch, kernels, card):
     """Phase 6g, the training paths, every counter set to 0 just before
     each run and read just after:
@@ -2016,7 +2241,8 @@ def drive_training(torch, kernels, card):
          nothing else; seconds per step, tokens/s, peak memory; one more
          step traced.
     Returns {"icu": launches of a, "qwen2": launches of b, "step_s": ...,
-    "scans": {arch: launches, step_s, tokens_s, peak_gb of d}}.
+    "scans": {arch: launches, step_s, tokens_s, peak_gb of d}, "zamba2":
+    (its config, its trained parameters) for phase 6h}.
     """
     import gc
 
@@ -2234,11 +2460,13 @@ def drive_training(torch, kernels, card):
               + ", ".join(f"{k} {v:.2f} ms" for k, v in kinds_ms.items()))
         scans[name] = {"launches": launched, "step_s": step,
                        "tokens_s": tokens_n / step, "peak_gb": peak / 1e9}
+        if name == "zamba2-2.7b":
+            zamba2 = (cfg, run.params)          # phase 6h's weights
         del run, m, prof
     gc.collect()
     torch.cuda.empty_cache()
     return {"icu": icu_launches, "qwen2": qwen_launches, "step_s": step_s,
-            "tokens_s": tokens / step_s, "scans": scans}
+            "tokens_s": tokens / step_s, "scans": scans, "zamba2": zamba2}
 
 
 def time_backward(torch, cuda, card):
@@ -2743,6 +2971,17 @@ def main():
     torch.cuda.empty_cache()
 
     mark("4. zamba2 and xlstm gradients")
+    # the same one-group gradients with remat (each group recomputed in
+    # the backward) against those without, on the card
+    for label, cfg, seed, kinds in (
+            ("zamba2-2.7b one group", zcfg, 52,
+             dict(flash_attention=1, ssm_scan=5)),
+            ("xlstm-350m one group", xcfg, 53,
+             dict(mlstm_chunk=XLSTM_BLOCKS))):
+        check_remat_one_group(torch, kernels, label, cfg, seed, kinds)
+    torch.cuda.empty_cache()
+
+    mark("4. remat gradients")
     # the rest of the LLM zoo at full width, one group, float32, noised
     for name in ONE_GROUP_CHECKS:
         check_llm_one_group(torch, flash_attention, name)
@@ -2799,6 +3038,10 @@ def main():
                            f"{others}; expected {want}, 0 and none")
 
     mark("6a. serve")
+    # the paper's pipeline, examples/serve_hierarchical, on the card
+    hier = drive_serve_hierarchical(torch, kernels, card)
+
+    mark("6a. examples.serve_hierarchical")
     # 6b, 6c. the LLM serving paths, each with every counter read around
     # it alone
     zcfg = get_config("zamba2-2.7b")
@@ -2844,6 +3087,14 @@ def main():
                        + zamba_trained["flash_attention"])
 
     mark("6g. training")
+    # 6h. zamba2-2.7b with and without remat on 6g's weights, and the
+    # longest lengths that fit (each first run's counters read around it)
+    remat = drive_remat(torch, kernels, card, *trained.pop("zamba2"))
+    remat_launches = {n: remat[False][n] + remat[True][n] for n in kernels}
+    flash_launches += remat_launches["flash_attention"]
+    torch.cuda.empty_cache()
+
+    mark("6h. remat")
     # main-path lstm_sequence launches per (B, I, H): calibrate runs two
     # inferences of CALIBRATE_RECORDS per workload, execution one of
     # EXECUTE_RECORDS per job, each one launch per layer
@@ -3190,7 +3441,7 @@ def main():
         "replaces": "src/repro/kernels/lstm_cell.py:25, scanned by "
                     "src/repro/models/lstm.py:52-58",
         "launches": launches + sum(n for _, n in fleet_runs.values())
-        + trained["icu"]["lstm_sequence"],
+        + trained["icu"]["lstm_sequence"] + hier["lstm_sequence"],
         "max_abs_err": seq_err,
         "ms": mean_over_mix(per_seq, "ms"),
         "plain_ms": mean_over_mix(per_seq, "plain_ms"),
@@ -3210,7 +3461,8 @@ def main():
         "name": "ssm_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ssm_scan.cu",
         "replaces": "src/repro/kernels/ssm_scan.py:34",
-        "launches": ssm_launches + zamba_trained["ssm_scan"],
+        "launches": ssm_launches + zamba_trained["ssm_scan"]
+        + remat_launches["ssm_scan"],
         "max_abs_err": ssm_err[(ZAMBA_SSM, "bfloat16")],
         "ms": st["ms"], "plain_ms": st["plain_ms"],
         "bound_ms": max(st["bytes_ms"], st["ops_ms"]),
@@ -3232,7 +3484,8 @@ def main():
         "replaces": "src/repro/kernels/lstm_cell.py:25, its gradient "
                     "through the scan of src/repro/models/lstm.py:52-58 "
                     "(JAX autodiff there; no Pallas backward)",
-        "launches": trained["icu"]["lstm_sequence_backward"],
+        "launches": trained["icu"]["lstm_sequence_backward"]
+        + hier["lstm_sequence_backward"],
         "max_abs_err": lstm_bwd_err,
         "ms": statistics.mean(t["ms"] for t in per_bwd.values()),
         "graph_ms": statistics.mean(t["graph_ms"] for t in per_bwd.values()),
@@ -3248,7 +3501,8 @@ def main():
         "replaces": "src/repro/kernels/flash_attention.py:33, its "
                     "gradient (JAX autodiff there; no Pallas backward)",
         "launches": trained["qwen2"]["flash_attention_backward"]
-        + zamba_trained["flash_attention_backward"],
+        + zamba_trained["flash_attention_backward"]
+        + remat_launches["flash_attention_backward"],
         "max_abs_err": flash_bwd_err[(QWEN_TRAIN_ATTN, 0, "bfloat16")],
         "ms": fbt["ms"], "plain_ms": fbt["plain_ms"],
         "bound_ms": fbt["bound_ms"], "bound_by": fbt["bound_by"],
@@ -3264,7 +3518,8 @@ def main():
         "library_ms": None} for name, source, replaces, launched, shape in (
             ("ssm_scan_backward", "ssm_scan",
              "src/repro/kernels/ssm_scan.py:34",
-             zamba_trained["ssm_scan_backward"], SSM_TRAIN),
+             zamba_trained["ssm_scan_backward"]
+             + remat_launches["ssm_scan_backward"], SSM_TRAIN),
             ("mlstm_chunk_backward", "mlstm_chunk",
              "src/repro/kernels/mlstm_chunk.py:37",
              xlstm_trained["mlstm_chunk_backward"], MLSTM_TRAIN))]}))

@@ -1,7 +1,5 @@
 """Config registry: ``get_config("<arch-id>")`` and input shapes, as in
-the reference. The ICU LSTM classifiers live in `configs/icu_lstm.py`.
-`models.model_zoo.build_model` refuses the archs the port cannot build
-yet; the registry names all ten."""
+the reference. The ICU LSTM classifiers live in `configs/icu_lstm.py`."""
 from repro_torch.configs.base import INPUT_SHAPES, ModelConfig, ShapeConfig  # noqa: F401
 
 _ARCH_MODULES = {
@@ -27,3 +25,11 @@ def get_config(name: str) -> ModelConfig:
     mod = importlib.import_module(
         f"repro_torch.configs.{_ARCH_MODULES[name]}")
     return mod.CONFIG
+
+
+def get_shape(name: str) -> ShapeConfig:
+    return INPUT_SHAPES[name]
+
+
+def all_configs():
+    return {n: get_config(n) for n in ARCH_NAMES}

@@ -11,7 +11,10 @@ group at a time into tensors allocated once for all groups, so a model
 that takes most of the card is never held twice. The reference's sharding
 constraints have no counterpart on one card and are left out. `loss`
 evaluates the LM head in sequence chunks, each recomputed in the backward
-(`chunked_nll`), as the reference's `jax.checkpoint`ed scan does.
+(`chunked_nll`), as the reference's `jax.checkpoint`ed scan does. With
+`remat`, training under grad recomputes each group in the backward as
+well (`TransformerStack.apply`), as the reference's `jax.checkpoint` of
+its scan body does.
 """
 from __future__ import annotations
 
@@ -123,14 +126,17 @@ def _unbind(tree, n: int) -> list:
 class TransformerStack:
     """num_groups copies of a block pattern (cfg.group_pattern unless
     given), applied one after another. Shared-weight blocks (zamba2) are
-    initialised once and reach the blocks through ctx."""
+    initialised once and reach the blocks through ctx. With `remat`, a
+    training forward under grad saves only each group's input and
+    recomputes the group in the backward."""
 
     def __init__(self, cfg: ModelConfig, pattern: Optional[tuple] = None,
-                 num_groups: Optional[int] = None):
+                 num_groups: Optional[int] = None, remat: bool = False):
         self.cfg = cfg
         self.pattern = pattern or cfg.group_pattern
         self.num_groups = num_groups or cfg.num_groups
         self.has_shared = base.SHARED_ATTN in self.pattern
+        self.remat = remat
 
     def _init_group(self, generator: torch.Generator) -> dict:
         return {f"b{i}_{kind}": blocks.init_block(kind, generator, self.cfg)
@@ -148,28 +154,45 @@ class TransformerStack:
             p["shared"] = blocks._init_attn_mlp(generator, self.cfg)
         return p
 
+    def _group(self, gp: dict, x: torch.Tensor, ctx: dict,
+               gcache: Optional[dict], mode: str):
+        """One group's blocks: (x, {block: cache out}, {aux key: sum})."""
+        out, aux_sum = {}, {k: 0.0 for k in AUX_KEYS}
+        for i, kind in enumerate(self.pattern):
+            key = f"b{i}_{kind}"
+            x, out[key], aux = blocks.apply_block(
+                kind, gp[key], x, ctx,
+                gcache[key] if gcache is not None else None, mode)
+            for k in AUX_KEYS:
+                aux_sum[k] = aux_sum[k] + aux.get(k, 0.0)
+        return x, out, aux_sum
+
     def apply(self, p: dict, x: torch.Tensor, ctx: dict,
               caches: Optional[list] = None, mode: str = "train"):
         """caches: one dict per group (decode) or None.
 
-        Returns (x, caches_out | None, aux dict)."""
+        Returns (x, caches_out | None, aux dict). With `remat`, in train
+        mode under grad each group runs through a non-reentrant
+        `torch.utils.checkpoint`: it follows the tensors the group reads
+        through ctx (zamba2's shared weights, the cross states) without
+        taking them as inputs, and hands the group's outputs, the MoE aux
+        terms included, to autograd as they are."""
         ctx = dict(ctx)
         if self.has_shared:
             ctx["shared_attn"] = p["shared"]
         collect = mode in ("prefill", "decode")
+        remat = self.remat and mode == "train" and torch.is_grad_enabled()
         caches_out = [] if collect else None
         aux_sum = {k: 0.0 for k in AUX_KEYS}
         for g, gp in enumerate(_unbind(p["groups"], self.num_groups)):
             gcache = caches[g] if mode == "decode" else None
-            out = {}
-            for i, kind in enumerate(self.pattern):
-                key = f"b{i}_{kind}"
-                x, c_out, aux = blocks.apply_block(
-                    kind, gp[key], x, ctx,
-                    gcache[key] if gcache is not None else None, mode)
-                for k in AUX_KEYS:
-                    aux_sum[k] = aux_sum[k] + aux.get(k, 0.0)
-                out[key] = c_out
+            if remat:
+                x, out, aux = checkpoint(self._group, gp, x, ctx, gcache,
+                                         mode, use_reentrant=False)
+            else:
+                x, out, aux = self._group(gp, x, ctx, gcache, mode)
+            for k in AUX_KEYS:
+                aux_sum[k] = aux_sum[k] + aux[k]
             if collect:
                 caches_out.append(out)
         return x, caches_out, aux_sum
@@ -189,9 +212,9 @@ class DecoderModel:
     batch dict keys: "tokens" (B, L) integer token ids; vlm additionally
     "vision_embeds" (B, S_v, vision_dim)."""
 
-    def __init__(self, cfg: ModelConfig):
+    def __init__(self, cfg: ModelConfig, remat: bool = False):
         self.cfg = cfg
-        self.stack = TransformerStack(cfg)
+        self.stack = TransformerStack(cfg, remat=remat)
 
     # ------------------------------------------------------------- params
     def init(self, generator: Optional[torch.Generator] = None,

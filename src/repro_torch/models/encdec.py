@@ -31,15 +31,17 @@ class EncDecModel:
     """batch keys: "tokens" (B, L) integer target ids, "frames" (B, F,
     d_model) stub-encoder frame embeddings."""
 
-    def __init__(self, cfg: ModelConfig):
+    def __init__(self, cfg: ModelConfig, remat: bool = False):
         if not cfg.is_encdec:
             raise ValueError(f"{cfg.name}: EncDecModel needs "
                              f"encoder_layers > 0")
         self.cfg = cfg
         self.encoder = TransformerStack(cfg, pattern=ENCODER_PATTERN,
-                                        num_groups=cfg.encoder_layers)
+                                        num_groups=cfg.encoder_layers,
+                                        remat=remat)
         self.decoder = TransformerStack(cfg, pattern=DECODER_PATTERN,
-                                        num_groups=cfg.num_layers)
+                                        num_groups=cfg.num_layers,
+                                        remat=remat)
 
     def init(self, generator: Optional[torch.Generator] = None,
              device: str | torch.device | None = None) -> dict:

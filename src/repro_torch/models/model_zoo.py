@@ -6,7 +6,10 @@ from repro_torch.models.decoder import DecoderModel
 from repro_torch.models.encdec import EncDecModel
 
 
-def build_model(cfg: ModelConfig) -> DecoderModel | EncDecModel:
+def build_model(cfg: ModelConfig,
+                remat: bool = False) -> DecoderModel | EncDecModel:
+    """remat: recompute each group in the backward of a training forward
+    (`TransformerStack`), trading one more forward for the activations."""
     if cfg.is_encdec:
-        return EncDecModel(cfg)
-    return DecoderModel(cfg)
+        return EncDecModel(cfg, remat=remat)
+    return DecoderModel(cfg, remat=remat)

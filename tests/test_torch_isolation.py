@@ -95,6 +95,40 @@ def test_scan_backwards_load_neither_jax_nor_repro():
     assert out.stdout.strip() == ""
 
 
+def test_remat_utils_analysis_examples_load_neither_jax_nor_repro():
+    """utils.flops (a param count through the FakeTensorMode init),
+    analysis, the four examples and a remat model's loss and gradients on
+    the CPU stay clear of jax and repro."""
+    code = ("import sys, torch\n"
+            "import repro_torch.analysis, repro_torch.analysis.__main__\n"
+            "import repro_torch.examples.serve_hierarchical\n"
+            "import repro_torch.examples.quickstart\n"
+            "import repro_torch.examples.long_context_decode\n"
+            "import repro_torch.examples.llm_fleet_allocation\n"
+            "from repro_torch.configs import get_config, get_shape\n"
+            "from repro_torch.data.pipeline import make_batch\n"
+            "from repro_torch.models import build_model\n"
+            "from repro_torch.utils import flops\n"
+            "cfg = get_config('zamba2-2.7b')\n"
+            "flops.step_flops(cfg, get_shape('train_4k'))\n"
+            "cfg = cfg.reduced(layers=12, d_model=64, vocab=128)\n"
+            "m = build_model(cfg, remat=True)\n"
+            "p = m.init(torch.Generator().manual_seed(0), device='cpu')\n"
+            "leaves = [p['embed'], p['stack']['shared']['attn']['wq']]\n"
+            "for t in leaves:\n"
+            "    t.requires_grad_(True)\n"
+            "torch.autograd.grad(m.loss(p, make_batch(cfg, 1, 16)), leaves)\n"
+            "bad = sorted(m for m in sys.modules if m == 'jax' or "
+            "m.startswith('jax.') or m == 'repro' or "
+            "m.startswith('repro.'))\n"
+            "print(','.join(bad))\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120,
+                         check=True)
+    assert out.stdout.strip() == ""
+
+
 def _imports(path):
     for node in ast.walk(ast.parse(path.read_text(), str(path))):
         if isinstance(node, ast.Import):
