@@ -93,6 +93,15 @@ Phases, each of which raises on failure:
         losses; then the longest length that fits at batch 4 for each
         setting (2048 ... 8192, and 16384 with remat), each ladder ending
         at its first out-of-memory error;
+     i. distribution at one rank (`drive_distribution`): an NCCL process
+        group of world size 1 and the (1, 1) host mesh; qwen2-1.5b
+        through `launch.train --mesh host` (DTensor parameters and AdamW
+        state, 3 steps at 8 x 1024) against the same steps unmeshed from
+        the same weights and batches, and zamba2-2.7b's loss and
+        gradients on 6g's weights meshed against unmeshed: losses and
+        gradients within 1e-6 relative, the same flash and ssm_scan
+        launches (the kernels reached on local shards through
+        local_map), seconds per step and peak memory of each;
   7. timings with CUDA events (and by CUDA-graph replay, the device time
      alone, for each kernel at its main-path shape), each printed beside
      the card's name and power limit (flash_attention also at each of
@@ -368,6 +377,17 @@ SCAN_TRAIN_STEPS = 3
 # ladder of lengths, each setting up to its first out-of-memory error
 REMAT_BATCH, REMAT_SEQ, REMAT_REPS = 4, 1024, 3
 REMAT_LADDER = {False: (2048, 4096, 8192), True: (2048, 4096, 8192, 16384)}
+# phase 6i: distribution at one rank (an NCCL process group of world size
+# 1, the host mesh (1, 1)): qwen2-1.5b through launch.train --mesh host,
+# DIST_STEPS steps at TRAIN_BATCH x TRAIN_SEQ against the same steps
+# unmeshed from the same weights and batches, and zamba2-2.7b's loss and
+# gradients on 6g's weights at REMAT_BATCH x REMAT_SEQ meshed against
+# unmeshed; every loss and gradient within DIST_RTOL (relative; to the
+# leaf's largest entry for a gradient) and the same launches. Several
+# NCCL ranks cannot share one card: the multi-rank checks are the CPU
+# tests' (tests/test_torch_distributed.py, 4 gloo ranks).
+DIST_STEPS = 3
+DIST_RTOL = 1e-6
 # phase 6a's neighbour: the paper's pipeline, examples/serve_hierarchical
 # on the port (the offline phase, 60 steps per ICU workload, then
 # serve.run on its default 12 patients)
@@ -376,25 +396,27 @@ HIER_PATIENTS = 12
 # edge machines, benchmarks/scheduler_scale.py bench_contention) and
 # run_wards at 32 wards x 100 patients; the contention search held
 # against the CPU at 8 x 40, and timed at FLEET_TIMED_WARDS x 100 with the
-# benchmark's budgets (max_count 5, max_sweeps 4)
+# benchmark's max_count 5 and 2 of its 4 sweeps (cut to keep the run
+# inside its limit on a slow host; the CUDA sweep alone took 85.5 s at 4)
 FLEET_MPT = (4, 2)
 FLEET_WARDS, FLEET_PATIENTS = 32, 100
 FLEET_CHECK = (8, 40)
 FLEET_TIMED_WARDS = 4
 BATCHED_TIMED_N = (100, 1000)   # search_batched's instance sizes
-FLEET_TIMED_BUDGET = dict(max_count=5, max_sweeps=4)
+FLEET_TIMED_BUDGET = dict(max_count=5, max_sweeps=2)
 PYTHON_ONLY = 10 ** 9           # a search threshold no instance reaches
 # metro (phase 6e): the chaos packs at their canonical shapes, held to the
 # event-log CRCs the reference committed in BENCH_scheduler.json (its bench
 # pins the single-ward search to Python, as here); the tabu replans of
 # mass_casualty_crash and degraded_network batch 4 wards onto the device
 # search. The default pack runs on CUDA and on the host CPU at a cut
-# horizon (METRO_DEFAULT_HOURS of its canonical 2 h)
+# horizon (METRO_DEFAULT_HOURS of its canonical 2 h; 0.5 h, as the CPU
+# tests run it, since the fleet policy's 1 h took 106 s on CUDA)
 METRO_PACKS = ("edge_brownout", "mass_casualty_crash", "degraded_network",
                "diurnal_day")
 METRO_BATCHED_PACKS = ("mass_casualty_crash", "degraded_network")
 METRO_POLICIES = ("greedy", "tabu", "shed")
-METRO_DEFAULT_HOURS = 1.0
+METRO_DEFAULT_HOURS = 0.5
 SLOW_RUN_S = 20.0               # a timing whose first run takes longer is
                                 # reported from that one run
 
@@ -1619,7 +1641,9 @@ def time_fleet(torch, cuda, card):
                 wards, machines_per_tier=mpt_fleet, **FLEET_TIMED_BUDGET,
                 **kw)), card,
             f"search_fleet {FLEET_TIMED_WARDS} wards x {FLEET_PATIENTS} "
-            f"fleet {FLEET_MPT} max_count 5 max_sweeps 4 {label}",
+            f"fleet {FLEET_MPT} max_count "
+            f"{FLEET_TIMED_BUDGET['max_count']} max_sweeps "
+            f"{FLEET_TIMED_BUDGET['max_sweeps']} {label}",
             reps=1 if label != "python" else 3)
         plan = res["plan"]
         print(f"  {label}: naive claimed {plan.naive_reported:.1f}, naive "
@@ -2165,6 +2189,154 @@ def drive_remat(torch, kernels, card, cfg, params):
               f"that fits at batch {REMAT_BATCH}: {fits} tokens (of "
               f"{(REMAT_SEQ,) + lengths})")
     print(f"phase 6h: {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+def drive_distribution(torch, kernels, card, zamba_cfg, zamba_params):
+    """Phase 6i, distribution at one rank, every counter set to 0 just
+    before each run and read just after:
+      a. qwen2-1.5b at full width and depth, bf16, `launch.train.run`,
+         DIST_STEPS AdamW steps at TRAIN_BATCH x TRAIN_SEQ, unmeshed and
+         then with mesh="host" (an NCCL process group of world size 1,
+         the (1, 1) host mesh; DTensor parameters and AdamW state, the
+         batches placed by shard_batch, the step under the activation
+         policy), from the same weights (seed 0) and batches: losses
+         finite and within DIST_RTOL of each other per step (bit-equal
+         reported), the same launches, 28 flash forward and 28 backward
+         a step; seconds per step and peak memory of each;
+      b. zamba2-2.7b's loss and every gradient on 6g's weights at
+         REMAT_BATCH x REMAT_SEQ, unmeshed and on the mesh (residual
+         replicated): within DIST_RTOL, the same ssm_scan and flash
+         launches.
+    Destroys the process group at the end. Returns {run: launches}."""
+    import gc
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import shard_batch
+    from repro_torch.launch import train
+    from repro_torch.models import build_model
+    from repro_torch.sharding import policy
+    from repro_torch.training import train_loop
+    cuda = torch.device("cuda")
+    t_phase = time.perf_counter()
+    out, qwen = {}, {}
+    for meshed in (False, True):
+        gc.collect()
+        torch.cuda.empty_cache()
+        for k in kernels.values():
+            k.launches = 0
+        held = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        run = train.run("qwen2-1.5b", steps=DIST_STEPS, batch=TRAIN_BATCH,
+                        seq=TRAIN_SEQ, device=cuda, log_every=DIST_STEPS,
+                        mesh="host" if meshed else None)
+        total_s = time.perf_counter() - t0
+        out[f"qwen2 meshed={meshed}"] = {n: k.launches
+                                         for n, k in kernels.items()}
+        leaf = next(leaves(run.params))
+        where = ""
+        if meshed:
+            dm = leaf.device_mesh
+            where = f" on {dict(zip(dm.mesh_dim_names, dm.shape))}"
+        qwen[meshed] = (run.losses, run.step_seconds,
+                        (run.peak_bytes or 0) - held)
+        print(f"[{card}] phase 6i qwen2-1.5b {TRAIN_BATCH} x {TRAIN_SEQ}, "
+              f"meshed={meshed} ({type(leaf).__name__} parameters{where}"
+              f"): losses {run.losses}, step seconds "
+              f"{[round(x, 4) for x in run.step_seconds]} (host clock after "
+              f"a synchronise; median of steps 1-{DIST_STEPS - 1} "
+              f"{statistics.median(run.step_seconds[1:]):.4f} s), run "
+              f"{total_s:.1f} s with the init, peak device memory "
+              f"{qwen[meshed][2] / 1e9:.2f} GB (less the {held / 1e9:.2f} GB "
+              f"held before); launches {out[f'qwen2 meshed={meshed}']}")
+        del run, leaf
+    (l0, s0, _), (l1, s1, _) = qwen[False], qwen[True]
+    rel = max(abs(a - b) / abs(a) for a, b in zip(l0, l1))
+    print(f"[{card}] phase 6i qwen2-1.5b: max relative loss gap meshed vs "
+          f"unmeshed {rel:.3e} (<= {DIST_RTOL}), bit-equal "
+          f"{l0 == l1}; seconds per step (median of steps 1-"
+          f"{DIST_STEPS - 1}) meshed {statistics.median(s1[1:]):.4f} against "
+          f"unmeshed {statistics.median(s0[1:]):.4f} "
+          f"({statistics.median(s1[1:]) / statistics.median(s0[1:]):.3f}x: "
+          f"DTensor's host cost at one rank)")
+    if not np.isfinite(l0 + l1).all() or not rel <= DIST_RTOL:
+        raise RuntimeError(f"phase 6i qwen2-1.5b: losses {l1} meshed, {l0} "
+                           f"unmeshed")
+    layers = get_config("qwen2-1.5b").num_layers
+    want = dict({n: 0 for n in kernels},
+                flash_attention=layers * DIST_STEPS,
+                flash_attention_backward=layers * DIST_STEPS)
+    expect_launches("phase 6i qwen2-1.5b unmeshed", out["qwen2 meshed=False"],
+                    want)
+    expect_launches("phase 6i qwen2-1.5b meshed", out["qwen2 meshed=True"],
+                    want)
+
+    # b. zamba2-2.7b's loss and gradients on 6g's weights
+    mesh = train.make_mesh("host", cuda)
+    model = build_model(zamba_cfg)
+    batch = next(train.make_batches(zamba_cfg, REMAT_BATCH, REMAT_SEQ, 0,
+                                    cuda))
+    res = {}
+    for meshed in (False, True):
+        gc.collect()
+        torch.cuda.empty_cache()
+        params = zamba_params
+        if meshed:
+            params = policy.distribute(zamba_params, policy.param_specs(
+                zamba_params, mesh), mesh)
+        for k in kernels.values():
+            k.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if meshed:
+            with policy.activation_policy(
+                    mesh, residual=policy.residual_for(zamba_cfg)):
+                loss, grads = train_loop._grads_of(
+                    model, params, shard_batch(batch, mesh))
+            grads = [g.full_tensor() for g in leaves(grads)]
+        else:
+            loss, grads = train_loop._grads_of(model, params, batch)
+            grads = list(leaves(grads))
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        out[f"zamba2 meshed={meshed}"] = {n: k.launches
+                                          for n, k in kernels.items()}
+        res[meshed] = (float(loss), grads)
+        print(f"[{card}] phase 6i zamba2-2.7b loss + gradients "
+              f"{REMAT_BATCH} x {REMAT_SEQ}, meshed={meshed}: loss "
+              f"{float(loss):.6f}, {secs:.3f} s (host clock after a "
+              f"synchronise, first run); launches "
+              f"{out[f'zamba2 meshed={meshed}']}")
+        del loss, params
+    (z0, g0), (z1, g1) = res[False], res[True]
+    worst = max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+                for a, b in zip(g1, g0))
+    equal = all(bool(torch.equal(a, b)) for a, b in zip(g1, g0))
+    zrel = abs(z1 - z0) / abs(z0)
+    print(f"[{card}] phase 6i zamba2-2.7b: loss gap {zrel:.3e}, max over "
+          f"{len(g0)} leaves of max |meshed - unmeshed| / max |unmeshed| "
+          f"{worst:.3e} (<= {DIST_RTOL}); loss and gradients bit-equal "
+          f"{z0 == z1 and equal}")
+    if not zrel <= DIST_RTOL or not worst <= DIST_RTOL:
+        raise RuntimeError("phase 6i zamba2-2.7b: meshed loss or gradients "
+                           "differ")
+    mamba = list(zamba_cfg.group_pattern).count("mamba") \
+        * zamba_cfg.num_groups
+    want = dict({n: 0 for n in kernels}, ssm_scan=mamba,
+                ssm_scan_backward=mamba, flash_attention=zamba_cfg.num_groups,
+                flash_attention_backward=zamba_cfg.num_groups)
+    expect_launches("phase 6i zamba2-2.7b unmeshed",
+                    out["zamba2 meshed=False"], want)
+    expect_launches("phase 6i zamba2-2.7b meshed", out["zamba2 meshed=True"],
+                    want)
+    del res, g0, g1, grads, batch, model
+    dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase 6i: {time.perf_counter() - t_phase:.1f} s")
     return out
 
 
@@ -3089,12 +3261,24 @@ def main():
     mark("6g. training")
     # 6h. zamba2-2.7b with and without remat on 6g's weights, and the
     # longest lengths that fit (each first run's counters read around it)
-    remat = drive_remat(torch, kernels, card, *trained.pop("zamba2"))
+    zamba_cfg, zamba_params = trained.pop("zamba2")
+    remat = drive_remat(torch, kernels, card, zamba_cfg, zamba_params)
     remat_launches = {n: remat[False][n] + remat[True][n] for n in kernels}
     flash_launches += remat_launches["flash_attention"]
     torch.cuda.empty_cache()
 
     mark("6h. remat")
+    # 6i. distribution at one rank: qwen2-1.5b and zamba2-2.7b meshed
+    # against unmeshed (each run's counters read around it alone)
+    dist_runs = drive_distribution(torch, kernels, card, zamba_cfg,
+                                   zamba_params)
+    del zamba_params
+    dist_launches = {n: sum(r[n] for r in dist_runs.values())
+                     for n in kernels}
+    flash_launches += dist_launches["flash_attention"]
+    torch.cuda.empty_cache()
+
+    mark("6i. distribution")
     # main-path lstm_sequence launches per (B, I, H): calibrate runs two
     # inferences of CALIBRATE_RECORDS per workload, execution one of
     # EXECUTE_RECORDS per job, each one launch per layer
@@ -3462,7 +3646,7 @@ def main():
         "source": "src/repro_torch/kernels/csrc/ssm_scan.cu",
         "replaces": "src/repro/kernels/ssm_scan.py:34",
         "launches": ssm_launches + zamba_trained["ssm_scan"]
-        + remat_launches["ssm_scan"],
+        + remat_launches["ssm_scan"] + dist_launches["ssm_scan"],
         "max_abs_err": ssm_err[(ZAMBA_SSM, "bfloat16")],
         "ms": st["ms"], "plain_ms": st["plain_ms"],
         "bound_ms": max(st["bytes_ms"], st["ops_ms"]),
@@ -3502,7 +3686,8 @@ def main():
                     "gradient (JAX autodiff there; no Pallas backward)",
         "launches": trained["qwen2"]["flash_attention_backward"]
         + zamba_trained["flash_attention_backward"]
-        + remat_launches["flash_attention_backward"],
+        + remat_launches["flash_attention_backward"]
+        + dist_launches["flash_attention_backward"],
         "max_abs_err": flash_bwd_err[(QWEN_TRAIN_ATTN, 0, "bfloat16")],
         "ms": fbt["ms"], "plain_ms": fbt["plain_ms"],
         "bound_ms": fbt["bound_ms"], "bound_by": fbt["bound_by"],
@@ -3519,7 +3704,8 @@ def main():
             ("ssm_scan_backward", "ssm_scan",
              "src/repro/kernels/ssm_scan.py:34",
              zamba_trained["ssm_scan_backward"]
-             + remat_launches["ssm_scan_backward"], SSM_TRAIN),
+             + remat_launches["ssm_scan_backward"]
+             + dist_launches["ssm_scan_backward"], SSM_TRAIN),
             ("mlstm_chunk_backward", "mlstm_chunk",
              "src/repro/kernels/mlstm_chunk.py:37",
              xlstm_trained["mlstm_chunk_backward"], MLSTM_TRAIN))]}))

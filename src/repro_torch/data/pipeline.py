@@ -4,7 +4,8 @@
 The arrays are drawn with numpy from the seed exactly as the reference
 draws them, then handed to torch on the CPU (the serving engine moves them
 to its device). Tokens are int64, torch's index type; the reference's are
-int32 with the same values. `shard_batch` has no counterpart on one card.
+int32 with the same values. `shard_batch` places a batch on a mesh
+(batch on dp where it divides, the rest replicated).
 """
 from __future__ import annotations
 
@@ -79,3 +80,13 @@ def make_batch(cfg: ModelConfig, batch: int, seq: int, seed: int = 0) -> dict:
     if cfg.is_encdec:
         out["frames"] = audio_stub(batch, cfg, seed)
     return out
+
+
+def shard_batch(batch: dict, mesh, specs: dict | None = None) -> dict:
+    """The batch as DTensors on `mesh`, placed by `specs`
+    (`sharding.policy.batch_specs` of the batch by default). Every rank
+    passes the same whole batch."""
+    from repro_torch.sharding import policy
+    if specs is None:
+        specs = policy.batch_specs(batch, mesh)
+    return policy.distribute(batch, specs, mesh)

@@ -12,6 +12,8 @@ from typing import Optional
 import torch
 import torch.utils.checkpoint
 
+from repro_torch.sharding.policy import DP, constrain
+
 
 def _recomputed(fn, *args):
     """fn(*args), recomputed in the backward instead of saved when grad
@@ -221,6 +223,13 @@ def mlstm_chunk_torch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return mlstm_chunk_reference(q, k, v, i_gate, f_gate)
     f32 = torch.float32
     scale = 1.0 / math.sqrt(d)
+
+    def pin(x):
+        # batch on dp, replicated elsewhere, as the reference pins the
+        # chunked scan's operands (an identity without a policy)
+        return constrain(x, (DP,) + (None,) * (x.ndim - 1))
+
+    q, k, v, i_gate, f_gate = (pin(x) for x in (q, k, v, i_gate, f_gate))
     causal = torch.tril(torch.ones((t, t), dtype=torch.bool,
                                    device=q.device))
     c_in = torch.zeros((bsz, h, d, d), dtype=f32, device=q.device)

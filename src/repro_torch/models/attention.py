@@ -14,8 +14,9 @@ with a float32 scale per (batch, head, slot). Keys are stored after RoPE
 so decode never re-rotates. Decode writes the new token's K/V into the
 cache in place (the reference returns an updated copy). Cross attention
 (llama-vision, the encoder-decoder) reads a static cache of the cross
-states' K/V built at prefill. The reference's sharding constraints have no
-counterpart on one card and are left out.
+states' K/V built at prefill. Under an activation policy q, k and v take
+the reference's constraint (batch on dp, heads on tp); without one it is
+the identity.
 """
 from __future__ import annotations
 
@@ -26,6 +27,8 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models import common
+from repro_torch.sharding import policy
+from repro_torch.sharding.policy import DP, TP, constrain
 
 NEG_INF = -1e30
 
@@ -54,18 +57,51 @@ def attn_init(generator: torch.Generator, cfg: ModelConfig,
     return p
 
 
+def _hd_sharded(w, dim: int) -> bool:
+    """A DTensor weight whose head_dim (its dim `dim`) is split on a mesh
+    dim: the policy's fallback where the heads do not divide "model"."""
+    if not policy.is_dtensor(w):
+        return False
+    from torch.distributed.tensor import Shard
+    return any(pl == Shard(dim) for pl in w.placements)
+
+
+def project_heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """einsum("bld,dhe->bhle"): (B, L, d) @ (d, H, hd) -> (B, H, L, hd).
+    With head_dim split on a mesh dim (`_hd_sharded`), the product runs
+    over (d, hd * H) with head_dim outermost, so the split stays one even
+    block per rank; einsum's (H * hd) would split inside heads."""
+    if not _hd_sharded(w, 2):
+        return torch.einsum("bld,dhe->bhle", x, w)
+    d, h, e = w.shape
+    y = x @ w.permute(0, 2, 1).reshape(d, e * h)
+    return y.reshape(*x.shape[:2], e, h).permute(0, 3, 1, 2)
+
+
+def project_out(y: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
+    """einsum("bhle,hed->bld"): (B, H, L, hd) @ (H, hd, d) -> (B, L, d),
+    contracted over (hd, H) when head_dim is split (as `project_heads`)."""
+    if not _hd_sharded(wo, 1):
+        return torch.einsum("bhle,hed->bld", y, wo)
+    b, h, l, e = y.shape
+    return (y.permute(0, 2, 3, 1).reshape(b, l, e * h)
+            @ wo.permute(1, 0, 2).reshape(e * h, wo.shape[-1]))
+
+
 def _qkv(p: dict, x: torch.Tensor, states: Optional[torch.Tensor]):
     """x: (B, L, d) queries' source; states: the keys' and values' source
     (x when None). -> q (B, Hq, L, hd), k and v (B, Hkv, S, hd)."""
     kv_src = x if states is None else states
-    q = torch.einsum("bld,dhe->bhle", x, p["wq"])
-    k = torch.einsum("bld,dhe->bhle", kv_src, p["wk"])
-    v = torch.einsum("bld,dhe->bhle", kv_src, p["wv"])
+    q = project_heads(x, p["wq"])
+    k = project_heads(kv_src, p["wk"])
+    v = project_heads(kv_src, p["wv"])
     if "bq" in p:
         q = q + p["bq"][None, :, None, :]
         k = k + p["bk"][None, :, None, :]
         v = v + p["bv"][None, :, None, :]
-    return q, k, v
+    qkv_spec = (DP, TP, None, None)     # batch on data, heads on model
+    return (constrain(q, qkv_spec), constrain(k, qkv_spec),
+            constrain(v, qkv_spec))
 
 
 def attn_full(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
@@ -91,7 +127,7 @@ def attn_full(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
     y = ops.attention(q.contiguous(), k.contiguous(), v.contiguous(),
                       causal=causal and cross_states is None, window=window,
                       softcap=cfg.attn_logit_softcap)
-    y = torch.einsum("bhle,hed->bld", y, p["wo"])
+    y = project_out(y, p["wo"])
     out = x + _gate(p, y)
 
     cache = None
@@ -166,7 +202,7 @@ def attn_decode(p: dict, x: torch.Tensor, cache: dict, pos: int,
     h = common.rms_norm(x, p["norm"], cfg.norm_eps)
     if cross:
         # no RoPE and no bias on q, as in the reference
-        q = torch.einsum("bld,dhe->bhle", h, p["wq"])
+        q = project_heads(h, p["wq"])
         y = _cached_attention(q, cache["k"], cache["v"], pos, None, cfg,
                               full=True)
     else:
@@ -184,24 +220,114 @@ def attn_decode(p: dict, x: torch.Tensor, cache: dict, pos: int,
         if "k_scale" in cache:
             kq, ks = _quantize(k[:, :, 0])
             vq, vs = _quantize(v[:, :, 0])
-            cache["k"][:, :, slot] = kq
-            cache["v"][:, :, slot] = vq
-            cache["k_scale"][:, :, slot] = ks
-            cache["v_scale"][:, :, slot] = vs
+            _write_slot(cache["k"], kq, slot)
+            _write_slot(cache["v"], vq, slot)
+            _write_slot(cache["k_scale"], ks, slot)
+            _write_slot(cache["v_scale"], vs, slot)
         else:
-            cache["k"][:, :, slot] = k[:, :, 0].to(cache["k"].dtype)
-            cache["v"][:, :, slot] = v[:, :, 0].to(cache["v"].dtype)
+            _write_slot(cache["k"], k[:, :, 0], slot)
+            _write_slot(cache["v"], v[:, :, 0], slot)
         y = _cached_attention(q, cache["k"], cache["v"], pos, window, cfg,
                               full=False, k_scale=cache.get("k_scale"),
                               v_scale=cache.get("v_scale"))
-    y = torch.einsum("bhle,hed->bld", y, p["wo"])
+    y = project_out(y, p["wo"])
     return x + _gate(p, y), cache
+
+
+def _write_slot(cache_t: torch.Tensor, value: torch.Tensor,
+                slot: int) -> None:
+    """cache_t[:, :, slot] = value, in place. A DTensor cache is written
+    on its local shard by the rank whose slots hold `slot` (the value
+    placed as the cache, its slot dim excepted), so a slot-sharded cache
+    is never gathered."""
+    if not policy.is_dtensor(cache_t):
+        cache_t[:, :, slot] = value.to(cache_t.dtype)
+        return
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = cache_t.device_mesh
+    placements = [Replicate() if pl == Shard(2) else pl
+                  for pl in cache_t.placements]
+    val = policy.replicated(value, mesh).redistribute(mesh, placements)
+    local = cache_t.to_local()
+    lo = _slot_offset(cache_t)
+    if lo <= slot < lo + local.shape[2]:
+        local[:, :, slot - lo] = val.to_local().to(local.dtype)
+
+
+def _slot_dims(cache_t) -> list:
+    """The mesh dims that split a DTensor cache's slots (its dim 2), in
+    mesh order: two for context-parallel slots on ("pod", "data")."""
+    from torch.distributed.tensor import Shard
+    return [j for j, pl in enumerate(cache_t.placements) if pl == Shard(2)]
+
+
+def _slot_offset(cache_t) -> int:
+    """The first slot of this rank's shard of a DTensor cache: the slots
+    are cut over the splitting mesh dims in mesh order (the first
+    outermost, as DTensor nests its shards), so the shard's index is
+    this rank's coordinate over those dims, first dim major."""
+    mesh = cache_t.device_mesh
+    index, ways = 0, 1
+    for j in _slot_dims(cache_t):
+        index = index * mesh.size(j) + mesh.get_local_rank(j)
+        ways *= mesh.size(j)
+    if cache_t.shape[2] % ways:
+        raise ValueError(f"{cache_t.shape[2]} cache slots do not divide "
+                         f"over {ways} ranks")
+    return index * (cache_t.shape[2] // ways)
 
 
 def _cached_attention(q, kc, vc, pos: Optional[int], window,
                       cfg: ModelConfig, *, full: bool,
                       k_scale: Optional[torch.Tensor] = None,
                       v_scale: Optional[torch.Tensor] = None):
+    """Decode attention (`_local_cached_attention`); a DTensor cache on
+    each rank's shard (`_sharded_cached_attention`)."""
+    if policy.is_dtensor(kc):
+        return _sharded_cached_attention(q, kc, vc, pos, window, cfg,
+                                         full=full, k_scale=k_scale,
+                                         v_scale=v_scale)
+    return _local_cached_attention(q, kc, vc, pos, window, cfg, full=full,
+                                   k_scale=k_scale, v_scale=v_scale)
+
+
+def _sharded_cached_attention(q, kc, vc, pos, window, cfg, *, full,
+                              k_scale=None, v_scale=None):
+    """Flash-decode over a DTensor cache, in a `local_map` region: each
+    rank takes the cache's local shard as it lies (batch on dp, kv heads
+    or slots on model, or slots on dp for a batch of one) and q placed
+    alike (its heads with the kv heads; replicated where the slots are
+    split); where the slots are split, the softmax's max and sum and the
+    value sums are reduced over that group, so the cache stays where it
+    is; slots split over several mesh dims (("pod", "data")) are reduced
+    over each of their groups in turn. Decode only (no gradient)."""
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = kc.device_mesh
+    cache_pl = tuple(kc.placements)
+    q_pl = tuple(Replicate() if pl == Shard(2) else pl for pl in cache_pl)
+    groups = tuple(mesh.get_group(j) for j in _slot_dims(kc))
+    slot0, slots = _slot_offset(kc), kc.shape[2]
+    scaled = k_scale is not None
+
+    def body(ql, kl, vl, *scales):
+        ks, vs = scales if scaled else (None, None)
+        return _local_cached_attention(ql, kl, vl, pos, window, cfg,
+                                       full=full, k_scale=ks, v_scale=vs,
+                                       slot0=slot0, total_slots=slots,
+                                       slot_groups=groups)
+
+    args = (q, kc, vc) + ((k_scale, v_scale) if scaled else ())
+    return policy.run_local(body, mesh, args,
+                            (q_pl,) + (cache_pl,) * (len(args) - 1), q_pl)
+
+
+def _local_cached_attention(q, kc, vc, pos: Optional[int], window,
+                            cfg: ModelConfig, *, full: bool,
+                            k_scale: Optional[torch.Tensor] = None,
+                            v_scale: Optional[torch.Tensor] = None,
+                            slot0: int = 0,
+                            total_slots: Optional[int] = None,
+                            slot_groups: tuple = ()):
     """q: (B, Hq, 1, hd); kc/vc: (B, Hkv, S, hd). Masked GEMV decode
     attention with grouped contractions (no repeat of the KV heads); with
     `full` every slot is live (cross attention). Both contractions read
@@ -210,9 +336,15 @@ def _cached_attention(q, kc, vc, pos: Optional[int], window,
     reference's `preferred_element_type=float32` does (int8 values are
     exact in bfloat16, so an int8 cache goes to float32 directly). An int8
     cache's scales are folded in after the integer-weight contractions:
-    k_scale into the logits, v_scale into the probabilities."""
+    k_scale into the logits, v_scale into the probabilities.
+
+    With `slot_groups`, kc/vc are slots [slot0, slot0 + S) of
+    `total_slots` split over the ranks of those process groups together:
+    the softmax's max and sum and the output are reduced over each group
+    in turn, which reduces them over all the ranks (flash-decode)."""
     b, hq, _, hd = q.shape
-    hkv, slots = kc.shape[1], kc.shape[2]
+    hkv = kc.shape[1]
+    slots = total_slots or kc.shape[2]
     group = hq // hkv
     f32 = torch.float32
     compute = torch.bfloat16 if kc.dtype == torch.int8 else kc.dtype
@@ -224,7 +356,7 @@ def _cached_attention(q, kc, vc, pos: Optional[int], window,
     if cfg.attn_logit_softcap is not None:
         logits = common.softcap(logits, cfg.attn_logit_softcap)
     if not full:
-        slot_idx = torch.arange(slots, device=q.device)
+        slot_idx = slot0 + torch.arange(kc.shape[2], device=q.device)
         if window:
             # ring buffer: valid slots are the last min(pos+1, slots)
             # writes
@@ -234,9 +366,22 @@ def _cached_attention(q, kc, vc, pos: Optional[int], window,
         else:
             mask = slot_idx <= pos
         logits = logits.masked_fill(~mask[None, None, None, :], NEG_INF)
-    probs = torch.softmax(logits, dim=-1)
+    dist = torch.distributed
+    if not slot_groups:
+        probs = torch.softmax(logits, dim=-1)
+    else:
+        m = torch.amax(logits, dim=-1, keepdim=True)
+        for g in slot_groups:
+            dist.all_reduce(m, dist.ReduceOp.MAX, group=g)
+        e = torch.exp(logits - m)
+        total = torch.sum(e, dim=-1, keepdim=True)
+        for g in slot_groups:
+            dist.all_reduce(total, group=g)
+        probs = e / total
     if v_scale is not None:
         probs = probs * v_scale[:, :, None, :]
     out = torch.einsum("bkgs,bkse->bkge", probs.to(compute).to(f32),
                        vc.to(f32))
+    for g in slot_groups:
+        dist.all_reduce(out, group=g)
     return out.reshape(b, hq, 1, hd).to(q.dtype)

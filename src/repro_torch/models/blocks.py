@@ -7,10 +7,13 @@ Uniform interface, as in the reference:
 mode in {"prefill", "decode"} (and "train" for a forward without caches).
 ctx carries the config, positions, the decode position, the cross states
 and the shared weights. aux is a dict of scalars (the MoE load-balance
-term). The reference's sharding constraints have no counterpart on one
-card and are left out, and so is its expert-parallel MoE (`ep_moe_ffn`,
-which needs a mesh): EP-major expert weights are rebuilt into the logical
-(E, d, f) layout, as the reference does without a mesh.
+term). Under an activation policy the mLSTM cell inputs take the
+reference's constraint (batch on dp), and the MoE routes and dispatches
+each batch shard locally (`_sharded_moe`); EP-major expert weights take
+the expert-parallel path (`sharding.ep_moe.ep_moe_ffn`, all-to-all over
+"model") on a mesh whose model axis is experts x shards, as the
+reference's, and are rebuilt into the logical (E, d, f) layout
+elsewhere.
 """
 from __future__ import annotations
 
@@ -25,6 +28,7 @@ from repro_torch.configs import base
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops, ref
 from repro_torch.models import attention, common
+from repro_torch.sharding import policy
 
 LORA_RANK = 64  # zamba2 per-block adapters on the shared attention weights
 MOE_GROUP = 2048  # the most tokens one MoE dispatch group holds
@@ -161,28 +165,18 @@ def _dispatch(h, ids, w, we, e: int, k: int, cap: int):
     return y.reshape(rows, g, d)
 
 
-def _moe_ffn(p, x, cfg: ModelConfig):
-    """Top-k MoE with per-group capacity by sort-based dispatch (the
-    reference's `_moe_ffn`). x: (B, S, d). Returns (x + y, load-balance
-    aux)."""
-    bsz, s, d = x.shape
-    e, k = cfg.num_experts, cfg.num_experts_per_tok
-    # dispatch in groups of <= MOE_GROUP tokens, as the reference does
-    g = s
-    while g > MOE_GROUP:
-        if s % (g // 2):
-            break
-        g //= 2
-    # capacity >= k so single-token decode never drops an expert
-    cap = max(k, int(math.ceil(k * g / e * cfg.moe_capacity_factor)))
+def _route(h, router, k: int):
+    """Top-k routing: (probs (.., E), top_w (.., k) renormalised, top_e
+    (.., k)), the router in float32."""
+    probs = torch.softmax(h.to(torch.float32) @ router, dim=-1)
+    top_w, top_e = _top_k(probs, k)
+    return probs, top_w / torch.sum(top_w, dim=-1, keepdim=True), top_e
 
-    h = common.rms_norm(x, p["moe_norm"], cfg.norm_eps)
-    we = _logical_experts(p["experts"], cfg)
-    logits = h.to(torch.float32) @ p["router"]                # (B, S, E)
-    probs = torch.softmax(logits, dim=-1)
-    top_w, top_e = _top_k(probs, k)                           # (B, S, k)
-    top_w = top_w / torch.sum(top_w, dim=-1, keepdim=True)
 
+def _dispatch_rows(h, top_e, top_w, we, e: int, k: int, g: int, cap: int):
+    """`_dispatch` over (B, S, d) tokens cut into rows of g tokens (g
+    divides S). Returns (B, S, d)."""
+    bsz, s, d = h.shape
     rows = bsz * s // g
     hr = h.reshape(rows, g, d)
     er = top_e.reshape(rows, g, k)
@@ -202,10 +196,79 @@ def _moe_ffn(p, x, cfg: ModelConfig):
         y = torch.cat([chunk(i) for i in range(0, rows, MOE_CHUNK)])
     else:
         y = _dispatch(hr, er, wr, we, e, k, cap)
-    y = y.reshape(bsz, s, d)
+    return y.reshape(bsz, s, d)
+
+
+def _sharded_moe(h, router, we, e: int, k: int, g: int, cap: int):
+    """The routing and the dispatch of DTensor tokens, each on its batch
+    shard in a `local_map` region (the reference's per-row dispatch,
+    which GSPMD keeps local): routing repeated on every model rank, the
+    experts' d_ff split over "model" where it divides (the output then
+    partial there). Returns (y, probs, the first choice one-hot)."""
+    mesh = h.device_mesh
+    rows = policy.layout(mesh, h.shape[0])
+    rep = policy.layout(mesh, None)
+
+    def route(hl, rl):
+        probs, top_w, top_e = _route(hl, rl, k)
+        return probs, top_w, top_e, F.one_hot(top_e[..., 0], e).to(
+            torch.float32)
+
+    probs, top_w, top_e, first = policy.run_local(
+        route, mesh, (h, router), (rows, rep), (rows,) * 4)
+    tp = policy.axis_sizes(mesh).get("model", 1)
+    split = tp > 1 and we["w_gate"].shape[-1] % tp == 0
+    up = policy.layout(mesh, None, heads_dim=2 if split else None)
+    down = policy.layout(mesh, None, heads_dim=1 if split else None)
+    from torch.distributed.tensor import Partial
+    out = tuple(Partial() if split and name == "model" else pl
+                for name, pl in zip(policy.axis_sizes(mesh), rows))
+
+    def dispatch(hl, el, wl, wg, wu, wd):
+        return _dispatch_rows(hl, el, wl, {"w_gate": wg, "w_up": wu,
+                                           "w_down": wd}, e, k, g, cap)
+
+    y = policy.run_local(dispatch, mesh,
+                         (h, top_e, top_w, we["w_gate"], we["w_up"],
+                          we["w_down"]), (rows, rows, rows, up, up, down),
+                         out)
+    return y, probs, first
+
+
+def _moe_ffn(p, x, cfg: ModelConfig):
+    """Top-k MoE with per-group capacity by sort-based dispatch (the
+    reference's `_moe_ffn`). x: (B, S, d). Returns (x + y, load-balance
+    aux). EP-major experts on a mesh whose "model" axis is experts x
+    shards take the expert-parallel path (`sharding.ep_moe`); elsewhere
+    they are rebuilt into the logical layout."""
+    bsz, s, d = x.shape
+    e, k = cfg.num_experts, cfg.num_experts_per_tok
+    # dispatch in groups of <= MOE_GROUP tokens, as the reference does
+    g = s
+    while g > MOE_GROUP:
+        if s % (g // 2):
+            break
+        g //= 2
+    # capacity >= k so single-token decode never drops an expert
+    cap = max(k, int(math.ceil(k * g / e * cfg.moe_capacity_factor)))
+
+    h = common.rms_norm(x, p["moe_norm"], cfg.norm_eps)
+    if "ep_gate" in p["experts"]:
+        mesh = policy.current_mesh()
+        if mesh is not None and policy.axis_sizes(mesh).get("model", 1) \
+                == e * cfg.moe_ep_shards:
+            from repro_torch.sharding.ep_moe import ep_moe_ffn
+            y, aux = ep_moe_ffn(p["experts"], p["router"], h, cfg, mesh)
+            return x + y.to(x.dtype), aux
+    we = _logical_experts(p["experts"], cfg)
+    if policy.is_dtensor(h):
+        y, probs, first = _sharded_moe(h, p["router"], we, e, k, g, cap)
+    else:
+        probs, top_w, top_e = _route(h, p["router"], k)   # (B, S, E / k)
+        y = _dispatch_rows(h, top_e, top_w, we, e, k, g, cap)
+        first = F.one_hot(top_e[..., 0], e).to(torch.float32)
     # load-balance aux (Switch-style): E * sum_e f_e * P_e
-    frac = torch.mean(F.one_hot(top_e[..., 0], e).to(torch.float32),
-                      dim=(0, 1))
+    frac = torch.mean(first, dim=(0, 1))
     mean_p = torch.mean(probs, dim=(0, 1))
     aux = e * torch.sum(frac * mean_p)
     return x + y.to(x.dtype), aux
@@ -351,8 +414,8 @@ def _apply_cross(p, x, ctx, cache, mode):
         # the cross K/V depend only on the (static) cross states: built
         # once, without the bias, as the reference builds them
         cache = {"attn": {
-            "k": torch.einsum("bld,dhe->bhle", states, p["attn"]["wk"]),
-            "v": torch.einsum("bld,dhe->bhle", states, p["attn"]["wv"])}}
+            "k": attention.project_heads(states, p["attn"]["wk"]),
+            "v": attention.project_heads(states, p["attn"]["wv"])}}
     x = common.mlp_apply(p["mlp"], x, cfg)
     return x, cache, {}
 
@@ -382,6 +445,32 @@ def _init_mlstm(generator: torch.Generator, cfg: ModelConfig) -> dict:
     }
 
 
+def _flat_step(out):
+    """(y, (C, n, m)) as (y, C, n, m)."""
+    y, (c, n, m) = out
+    return y, c, n, m
+
+
+def _on_rows(fn, rows, params, n_out: int, like):
+    """fn(*rows, *params): a decode step of a recurrent cell. With
+    DTensors, each rank steps its batch rows (dim 0 of every `rows`
+    argument, on dp; the cached states gathered off "model", where the
+    cache rules put them) in a `local_map` region, the parameters
+    replicated; each output i is then placed as like[i] (the cache's
+    layout), when like[i] is a DTensor."""
+    if not any(policy.is_dtensor(t) for t in rows):
+        return tuple(fn(*rows, *params))
+    mesh = next(t.device_mesh for t in rows if policy.is_dtensor(t))
+    r = policy.layout(mesh, rows[0].shape[0])
+    rep = policy.layout(mesh, None)
+    out = policy.run_local(lambda *a: tuple(fn(*a)), mesh,
+                           (*rows, *params),
+                           (r,) * len(rows) + (rep,) * len(params),
+                           (r,) * n_out)
+    return tuple(policy.placed_like(o, t) if policy.is_dtensor(t) else o
+                 for o, t in zip(out, like))
+
+
 def _apply_mlstm(p, x, ctx, cache, mode):
     cfg = ctx["cfg"]
     d_inner = cfg.ssm_expand * cfg.d_model
@@ -396,17 +485,23 @@ def _apply_mlstm(p, x, ctx, cache, mode):
     conv_state = cache["conv"] if mode == "decode" else None
     cx, conv_state = common.causal_conv_apply(p["conv"], xin, conv_state)
     cx = F.silu(cx)
-    q = (cx @ p["wq"]).reshape(bsz, l, h, ph)
-    k = (cx @ p["wk"]).reshape(bsz, l, h, ph)
-    v = (xin @ p["wv"]).reshape(bsz, l, h, ph)
-    gates = cx.to(f32) @ p["w_gates"] + p["gate_bias"]
+    # cell inputs are dp-sharded on batch, replicated elsewhere (the mLSTM
+    # matrix memory is computed locally per batch shard)
+    bld = (policy.DP, None, None)
+    q = policy.constrain(cx @ p["wq"], bld).reshape(bsz, l, h, ph)
+    k = policy.constrain(cx @ p["wk"], bld).reshape(bsz, l, h, ph)
+    v = policy.constrain(xin @ p["wv"], bld).reshape(bsz, l, h, ph)
+    gates = policy.constrain(cx.to(f32) @ p["w_gates"], bld) \
+        + p["gate_bias"]
     ig, fg = gates[..., :h], gates[..., h:]
 
     if mode == "decode":
         # one step of the sequential recurrence from the cached state,
         # plain torch as the reference leaves it
-        y, (c, nvec, m) = ref.mlstm_chunk_reference(
-            q, k, v, ig, fg, c0=cache["c"], n0=cache["n"], m0=cache["m"])
+        y, c, nvec, m = _on_rows(
+            lambda *a: _flat_step(ref.mlstm_chunk_reference(*a)),
+            (q, k, v, ig, fg, cache["c"], cache["n"], cache["m"]), (), 4,
+            like=(None, cache["c"], cache["n"], cache["m"]))
         y = y.reshape(bsz, 1, d_inner)
         new_cache = {"conv": conv_state, "c": c, "n": nvec, "m": m}
     else:
@@ -472,6 +567,26 @@ def _slstm_step(p, cfg, xg_t, state):
     return h_new, c_new, n_new, m_new
 
 
+def _slstm_scan(cfg, xg, r_gates, gate_bias):
+    """The sLSTM over a whole (B, L, 4d) sequence of gate
+    preactivations from the zero state: (y (B, L, d), h, c, n, m). The
+    reference's lax.scan over L as a loop of plain torch steps (no Pallas
+    kernel there); r_gates cast to float32 once, not per step, which
+    gives the same numbers."""
+    bsz, l, d4 = xg.shape
+    d = d4 // 4
+    f32 = torch.float32
+    step_p = {"r_gates": r_gates.to(f32), "gate_bias": gate_bias}
+    state = tuple(torch.zeros((bsz, d), dtype=f32, device=xg.device)
+                  for _ in range(3)) + (
+        torch.full((bsz, d), -1e30, dtype=f32, device=xg.device),)
+    ys = []
+    for t in range(l):
+        state = _slstm_step(step_p, cfg, xg[:, t], state)
+        ys.append(state[0])
+    return (torch.stack(ys, dim=1), *state)
+
+
 def _apply_slstm(p, x, ctx, cache, mode):
     cfg = ctx["cfg"]
     d = cfg.d_model
@@ -485,24 +600,26 @@ def _apply_slstm(p, x, ctx, cache, mode):
 
     if mode == "decode":
         state = (cache["h"], cache["c"], cache["n"], cache["m"])
-        state = _slstm_step(p, cfg, xg[:, 0], state)
+        state = _on_rows(
+            lambda x, *a: _slstm_step(
+                {"r_gates": a[4], "gate_bias": a[5]}, cfg, x, a[:4]),
+            (xg[:, 0], *state), (p["r_gates"], p["gate_bias"]), 4,
+            like=state)
         y = state[0][:, None, :]
         new_cache = {"conv": conv_state, "h": state[0], "c": state[1],
                      "n": state[2], "m": state[3]}
     else:
-        # the reference's lax.scan over L as a loop of plain torch steps
-        # (no Pallas kernel there); r_gates cast to float32 once, not per
-        # step, which gives the same numbers
-        step_p = {"r_gates": p["r_gates"].to(f32),
-                  "gate_bias": p["gate_bias"]}
-        state = tuple(torch.zeros((bsz, d), dtype=f32, device=x.device)
-                      for _ in range(3)) + (
-            torch.full((bsz, d), -1e30, dtype=f32, device=x.device),)
-        ys = []
-        for t in range(l):
-            state = _slstm_step(step_p, cfg, xg[:, t], state)
-            ys.append(state[0])
-        y = torch.stack(ys, dim=1)
+        if policy.is_dtensor(xg):
+            # the recurrence on each batch shard, repeated on every model
+            # rank (the cell is dp-only, as the reference's rules)
+            mesh = xg.device_mesh
+            rows, rep = policy.layout(mesh, bsz), policy.layout(mesh, None)
+            y, *state = policy.run_local(
+                lambda *a: _slstm_scan(cfg, *a), mesh,
+                (xg, p["r_gates"], p["gate_bias"]), (rows, rep, rep),
+                (rows,) * 5)
+        else:
+            y, *state = _slstm_scan(cfg, xg, p["r_gates"], p["gate_bias"])
         new_cache = ({"conv": conv_state, "h": state[0], "c": state[1],
                       "n": state[2], "m": state[3]}
                      if mode == "prefill" else None)

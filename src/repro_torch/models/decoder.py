@@ -9,7 +9,8 @@ with one dict per group, and the decode position is a host int, so a
 decode step reads nothing back from the card. Group leaves are drawn one
 group at a time into tensors allocated once for all groups, so a model
 that takes most of the card is never held twice. The reference's sharding
-constraints have no counterpart on one card and are left out. `loss`
+constraints are here (the residual after the embedding and each group,
+the logits), identities without an activation policy. `loss`
 evaluates the LM head in sequence chunks, each recomputed in the backward
 (`chunked_nll`), as the reference's `jax.checkpoint`ed scan does. With
 `remat`, training under grad recomputes each group in the backward as
@@ -22,12 +23,15 @@ import math
 from typing import Optional
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensorMode
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs import base
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import blocks, common
+from repro_torch.sharding import policy
+from repro_torch.sharding.policy import DP, TP, constrain, constrain_residual
 
 AUX_KEYS = ("moe_aux",)
 VOCAB_PAD_MULTIPLE = 256   # the reference pads the vocab to shard it evenly
@@ -78,11 +82,72 @@ def _nll_sum(logits: torch.Tensor, labels: torch.Tensor,
     """Weighted sum of log p(labels): an explicit log-sum-exp under a
     stopped max, as the reference; the target logit is gathered where the
     reference contracts a one-hot (the same value, without a (B, T, V)
-    one-hot)."""
+    one-hot). Under a policy the logits are batch-sharded on dp and
+    vocab-sharded on model (the reference's constraint), and the sum runs
+    on each rank's shard (`_vocab_parallel_nll_sum`)."""
+    logits = constrain(logits, (DP, None, TP))
+    if policy.is_dtensor(logits):
+        return _vocab_parallel_nll_sum(logits, labels, weights)
+    return _local_nll_sum(logits, labels, weights)
+
+
+def _local_nll_sum(logits, labels, weights, group=None, offset: int = 0):
+    """`_nll_sum` on plain tensors. With `group`, the logits are the
+    vocab slice [offset, offset + V_local) of a vocab split over the
+    group's ranks: the max, the exp-sum and the target logit are summed
+    over the group (the target taken where it lies in the slice)."""
     m = torch.amax(logits, dim=-1, keepdim=True).detach()
-    lse = torch.log(torch.sum(torch.exp(logits - m), dim=-1)) + m[..., 0]
-    tgt = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    if group is not None:
+        torch.distributed.all_reduce(m, torch.distributed.ReduceOp.MAX,
+                                     group=group)
+    se = torch.sum(torch.exp(logits - m), dim=-1)
+    if group is None:
+        tgt = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    else:
+        local = labels.long() - offset
+        inside = (local >= 0) & (local < logits.shape[-1])
+        tgt = torch.gather(logits, -1,
+                           torch.where(inside, local, 0)[..., None])[..., 0]
+        tgt = policy.group_sum(torch.where(inside, tgt, 0.0), group)
+        se = policy.group_sum(se, group)
+    lse = torch.log(se) + m[..., 0]
     return torch.sum((tgt - lse) * weights)
+
+
+def _vocab_parallel_nll_sum(logits, labels, weights):
+    """`_nll_sum` of DTensor logits, each rank on its local shard in a
+    `local_map` region: batch shards give partial sums (the output is
+    `Partial` on those mesh dims); a vocab split (on "model") is summed
+    over its group inside, so the output is replicated there."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    mesh = logits.device_mesh
+    placements = tuple(logits.placements)
+    vocab = [i for i, pl in enumerate(placements) if pl == Shard(2)]
+    if len(vocab) > 1 or any(pl not in (Shard(0), Shard(2), Replicate())
+                             for pl in placements):
+        raise ValueError(f"logits placed {placements}: expected batch on "
+                         f"dp and vocab on at most one mesh dim")
+    rows = tuple(Replicate() if pl == Shard(2) else pl for pl in placements)
+    out = tuple(Partial() if pl == Shard(0) else Replicate()
+                for pl in placements)
+    group, offset = None, 0
+    if vocab:
+        group = mesh.get_group(vocab[0])
+        offset = mesh.get_local_rank(vocab[0]) * (logits.shape[-1]
+                                                  // mesh.size(vocab[0]))
+
+    def body(lg, lb, w):
+        return _local_nll_sum(lg, lb, w, group, offset)
+
+    return policy.run_local(body, mesh, (logits, labels, weights),
+                            (placements, rows, rows), out)
+
+
+def fake_init(model) -> dict:
+    """`model.init` on the CPU under a new FakeTensorMode: fake tensors
+    of the parameters' shapes and dtypes, nothing allocated."""
+    with FakeTensorMode():
+        return model.init(torch.Generator().manual_seed(0), device="cpu")
 
 
 def next_token_targets(tokens: torch.Tensor):
@@ -191,6 +256,7 @@ class TransformerStack:
                                          mode, use_reentrant=False)
             else:
                 x, out, aux = self._group(gp, x, ctx, gcache, mode)
+            x = constrain_residual(x)
             for k in AUX_KEYS:
                 aux_sum[k] = aux_sum[k] + aux[k]
             if collect:
@@ -244,9 +310,15 @@ class DecoderModel:
                                                  cfg.d_model, dtype=dtype)
         return p
 
+    def param_specs(self) -> dict:
+        """The parameter tree's shapes and dtypes with no storage: `init`
+        drawn under a new FakeTensorMode, the counterpart of the
+        reference's `jax.eval_shape(self.init, ...)`."""
+        return fake_init(self)
+
     # -------------------------------------------------------------- pieces
     def _embed(self, p: dict, tokens: torch.Tensor) -> torch.Tensor:
-        x = p["embed"][tokens]
+        x = constrain_residual(p["embed"][tokens])
         # sqrt(d) rounded to the model's dtype, as the reference scales;
         # a Python scalar, so nothing is copied to the device
         scale = float(torch.tensor(math.sqrt(self.cfg.d_model),

@@ -20,8 +20,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import common
 from repro_torch.models.decoder import (TransformerStack, _mask_vocab_pad,
-                                        chunked_nll, next_token_targets,
-                                        padded_vocab)
+                                        chunked_nll, fake_init,
+                                        next_token_targets, padded_vocab)
 
 ENCODER_PATTERN = (base.ATTN,)
 DECODER_PATTERN = (base.ATTN, base.CROSS)
@@ -67,6 +67,11 @@ class EncDecModel:
             p["unembed"] = common.dense_init(generator, cfg.d_model, vpad,
                                              dtype=dtype)
         return p
+
+    def param_specs(self) -> dict:
+        """The parameter tree's shapes and dtypes with no storage (fake
+        tensors), as `DecoderModel.param_specs`."""
+        return fake_init(self)
 
     def encode(self, p: dict, frames: torch.Tensor) -> torch.Tensor:
         ctx = {"cfg": self.cfg, "causal": False, "cross_states": None}

@@ -1,0 +1,499 @@
+"""FSDP x TP sharding policy over the ("pod",) "data", "model" mesh, as the
+reference's (src/repro/sharding/policy.py), on DTensor.
+
+Two mechanisms, as there:
+
+1. **Name-aware parameter rules** (Megatron-style): every parameter leaf
+   name of the model zoo has a spec, leaf for leaf the reference's: qkv
+   column-parallel on heads, output projections row-parallel, d_ff
+   column/row pairs, vocab-parallel embeddings, stacked MoE experts TP on
+   d_ff, FSDP (("pod", "data") or "data") on the matching input dim, each
+   dim sharded only where it divides. A spec is a tuple with one entry per
+   tensor dim: None, a mesh-axis name, or ("pod", "data"); it equals
+   `tuple(PartitionSpec)` of the reference. `to_placements` turns it into
+   the DTensor placements per mesh dim (`Shard(i)` or `Replicate()`), and
+   `distribute` places a whole tree by its specs. Optimizer state mirrors
+   the parameter tree and takes the same specs by leaf name.
+
+2. **Activation constraints**: the models call `constrain(x, (DP, None,
+   TP))` at block boundaries, on q/k/v, on the logits and on the mLSTM
+   cell inputs. Under an active `activation_policy` (set by launch code) a
+   DTensor is redistributed to the spec (the counterpart of
+   `with_sharding_constraint`); with no policy active `constrain` returns
+   its argument itself, so single-device code never sees a mesh. A plain
+   tensor is never touched: under a policy it is a replicated value.
+
+While a policy is active, DTensor's `implicit_replication` is on too: the
+plain tensors the models make (rope frequencies, masks, zero states) mix
+with DTensors as replicated values.
+"""
+from __future__ import annotations
+
+import contextlib
+import math
+import threading
+from typing import Optional, Sequence
+
+import torch
+
+DP = "dp"   # logical data-parallel axes (("pod", "data") or ("data",))
+TP = "tp"   # logical tensor-parallel axis ("model")
+
+_policy = threading.local()
+
+
+def fsdp_axes(mesh_axis_names) -> tuple:
+    return ("pod", "data") if "pod" in mesh_axis_names else ("data",)
+
+
+def axis_sizes(mesh) -> dict:
+    """{axis name: size} of a DeviceMesh, or of any object with a dict
+    `shape` (a mesh of shape only, as the tests' FakeMesh)."""
+    if isinstance(mesh.shape, dict):
+        return dict(mesh.shape)
+    return dict(zip(mesh.mesh_dim_names, mesh.shape))
+
+
+class activation_policy:
+    """Context manager enabling activation sharding constraints on `mesh`.
+
+    residual: "seq" shards the block-boundary residual stream on the
+    sequence dim over the model axis (Megatron sequence parallelism);
+    "replicated" keeps it model-replicated, which the scans (ssm, mlstm)
+    need: they take the whole sequence locally."""
+
+    def __init__(self, mesh, residual: str = "seq"):
+        sizes = axis_sizes(mesh)
+        self.dp = fsdp_axes(tuple(sizes))
+        self.tp = ("model",) if "model" in sizes else ()
+        self.dp_size = math.prod(sizes[a] for a in self.dp)
+        self.tp_size = math.prod(sizes[a] for a in self.tp) if self.tp else 1
+        if residual not in ("seq", "replicated"):
+            raise ValueError(f"residual must be 'seq' or 'replicated', "
+                             f"got {residual!r}")
+        self.residual = residual
+        self.mesh = mesh
+        self._stack: Optional[contextlib.ExitStack] = None
+
+    def __enter__(self):
+        from torch.distributed.tensor.experimental import implicit_replication
+        self._stack = contextlib.ExitStack()
+        self._stack.enter_context(implicit_replication())
+        _policy.current = self
+        return self
+
+    def __exit__(self, *exc):
+        _policy.current = None
+        self._stack.close()
+        self._stack = None
+
+
+def residual_for(cfg) -> str:
+    """The residual layout of a family: sequence-sharded (Megatron SP) for
+    the attention families, replicated for the recurrent ones (ssm,
+    hybrid), whose scans take the whole sequence locally, as the
+    reference's dry-run chooses."""
+    return "replicated" if cfg.family in ("ssm", "hybrid") else "seq"
+
+
+def current_policy() -> Optional[activation_policy]:
+    return getattr(_policy, "current", None)
+
+
+def current_mesh():
+    pol = current_policy()
+    return None if pol is None else pol.mesh
+
+
+def resolve(shape, spec: Sequence, pol: activation_policy) -> tuple:
+    """A logical spec (None | DP | TP per dim) as a mesh spec for `shape`
+    under `pol`: dims that do not divide are dropped (None)."""
+    parts = []
+    for dim, s in zip(shape, spec):
+        if s == DP and dim % pol.dp_size == 0 and dim >= pol.dp_size:
+            parts.append(pol.dp if len(pol.dp) > 1 else pol.dp[0])
+        elif s == TP and pol.tp and dim % pol.tp_size == 0 \
+                and dim >= pol.tp_size:
+            parts.append(pol.tp[0])
+        else:
+            parts.append(None)
+    return tuple(parts) + (None,) * (len(shape) - len(parts))
+
+
+def constrain(x, spec: Sequence):
+    """spec entries: None | DP | TP. Dims that don't divide are dropped.
+    Without a policy, or for a plain tensor, returns `x` itself."""
+    pol = current_policy()
+    if pol is None or not is_dtensor(x):
+        return x
+    placements = to_placements(resolve(x.shape, spec, pol), pol.mesh)
+    if tuple(x.placements) == tuple(placements):
+        return x
+    return x.redistribute(pol.mesh, placements)
+
+
+def constrain_residual(x):
+    """Block-boundary residual stream (B, S, d)."""
+    pol = current_policy()
+    if pol is None:
+        return x
+    spec = (DP, TP, None) if pol.residual == "seq" else (DP, None, None)
+    return constrain(x, spec)
+
+
+def is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)
+
+
+def placed_like(x, ref):
+    """DTensor `x` redistributed to the placements of DTensor `ref` (a
+    gradient to its parameter's, a new state to its cache's)."""
+    if is_dtensor(x) and tuple(x.placements) != tuple(ref.placements):
+        return x.redistribute(ref.device_mesh, ref.placements)
+    return x
+
+
+def replicated(x, mesh):
+    """`x` as a DTensor on `mesh`: a plain tensor (a replicated value, the
+    same on every rank) is wrapped as `Replicate()` on every mesh dim."""
+    if is_dtensor(x):
+        return x
+    from torch.distributed.tensor import DTensor, Replicate
+    return DTensor.from_local(x, mesh, [Replicate()] * mesh.ndim,
+                              run_check=False)
+
+
+class _GroupSum(torch.autograd.Function):
+    """all_reduce(SUM) over a process group in the forward and the
+    identity in the backward: the sum's result is replicated over the
+    group and each rank's gradient of it is the whole gradient (Megatron's
+    reduce from the model-parallel region)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        out = x.clone()
+        torch.distributed.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def group_sum(x, group):
+    """`x` summed over the ranks of `group`, differentiable (identity
+    backward: the result is the same on every rank of the group)."""
+    return _GroupSum.apply(x, group)
+
+
+# ------------------------------------------------------------- param rules
+def _div(n: int, k: int) -> bool:
+    return k > 0 and n % k == 0 and n >= k
+
+
+def _param_rule(name: str, shape, model: int, fsdp: int, dp_axes) -> tuple:
+    """Spec for one (unstacked) parameter leaf by name."""
+    dp = dp_axes if len(dp_axes) > 1 else dp_axes[0]
+    nd = len(shape)
+
+    def d(i):  # dp if divisible
+        return dp if _div(shape[i], fsdp) else None
+
+    def m(i):  # model if divisible
+        return "model" if _div(shape[i], model) else None
+
+    if nd <= 1:
+        return ()
+    if name in ("wq", "wk", "wv"):
+        if nd == 2:                           # xLSTM: (d_inner, d_inner)
+            return (d(0), m(1))
+        if m(1):                              # (d, H, hd) column-parallel
+            return (d(0), "model", None)
+        return (d(0), None, m(2))
+    if name == "wo":                          # (H, hd, d) row-parallel
+        if m(0):
+            return ("model", None, d(2))
+        return (None, m(1), d(2))
+    if name in ("bq", "bk", "bv"):            # (H, hd) follow qkv
+        return ("model", None) if m(0) else (None, m(1))
+    if name in ("w_up", "w_gate", "w_in", "w_gates"):   # (d, out) column
+        return (d(0), m(1))
+    if name in ("w_down", "w_out"):           # (in, d) row-parallel
+        return (m(0), d(1))
+    if name == "embed":                       # (V, d) vocab-parallel
+        return (m(0), d(1))
+    if name == "unembed":                     # (d, V)
+        return (d(0), m(1))
+    if name == "router":
+        return ()
+    if name == "lora_a":
+        return (d(0), None)
+    if name == "lora_b":
+        return (None, d(1))
+    if name == "vision_proj":                 # (vision_dim, d)
+        return (d(0), m(1))
+    if name in ("wx", "wh"):                  # ICU LSTM (I, 4, H): tiny
+        return ()
+    if name.startswith("ep_"):                # EP-major experts (E*r, d, f/r)
+        # leading dim on "model" (one expert slice per shard);
+        # dp-replicated by design: an inference layout (sharding/ep_moe.py)
+        return ("model" if _div(shape[0], model) else None, None, None)
+    # fallback: model on the last divisible dim, fsdp on the first
+    spec = [None] * nd
+    for i in range(nd - 1, 0, -1):
+        if _div(shape[i], model):
+            spec[i] = "model"
+            break
+    if spec[0] is None and _div(shape[0], fsdp):
+        spec[0] = dp
+    return tuple(spec)
+
+
+def _expert_rule(name: str, shape, model: int, fsdp: int, dp_axes) -> tuple:
+    """Stacked MoE expert weights (E, d, f) / (E, f, d): TP on d_ff."""
+    dp = dp_axes if len(dp_axes) > 1 else dp_axes[0]
+    if name.startswith("ep_"):   # EP-major (E*r, d, f/r): expert on model
+        return ("model" if _div(shape[0], model) else None, None, None)
+    if name in ("w_up", "w_gate"):
+        return (None, dp if _div(shape[1], fsdp) else None,
+                "model" if _div(shape[2], model) else None)
+    if name == "w_down":
+        return (None, "model" if _div(shape[1], model) else None,
+                dp if _div(shape[2], fsdp) else None)
+    return ()
+
+
+def _mesh_sizes(mesh):
+    sizes = axis_sizes(mesh)
+    dp_axes = fsdp_axes(tuple(sizes))
+    fsdp = math.prod(sizes[a] for a in dp_axes)
+    return sizes.get("model", 1), fsdp, dp_axes
+
+
+def _map_with_path(fn, tree, path=()):
+    """`fn(path, leaf)` over a tree of dicts and lists; a path is the
+    tuple of dict keys and list indices down to the leaf. Leaves without
+    a shape (the cache's host position) are kept as they are."""
+    if isinstance(tree, dict):
+        return {k: _map_with_path(fn, v, path + (k,)) for k, v in
+                tree.items()}
+    if isinstance(tree, list):
+        return [_map_with_path(fn, v, path + (i,)) for i, v in
+                enumerate(tree)]
+    if not hasattr(tree, "shape"):
+        return tree
+    return fn(path, tree)
+
+
+def _stacked(keys) -> bool:
+    """A leaf under "groups" is stacked on a leading group axis, unless
+    the groups are a list (the port's decode caches: one dict a group)."""
+    if "groups" not in keys:
+        return False
+    i = keys.index("groups")
+    return not (i + 1 < len(keys) and isinstance(keys[i + 1], int))
+
+
+def param_specs(tree, mesh):
+    """The spec of every leaf of a parameter (or optimizer-moment) tree."""
+    model, fsdp, dp_axes = _mesh_sizes(mesh)
+
+    def one(path, leaf):
+        keys = [str(k) for k in path]
+        name = keys[-1] if keys else ""
+        stacked = "groups" in keys
+        in_experts = "experts" in keys
+        # xLSTM cell blocks: dp-only (no TP): the matrix-memory cell needs
+        # d_inner replicated. The model axis still serves the vocab-
+        # parallel embedding.
+        dp_only = any(k.endswith(("_mlstm", "_slstm")) for k in keys)
+        eff_model = 1 << 62 if dp_only else model
+        shape = tuple(leaf.shape[1:] if stacked else leaf.shape)
+        if len(shape) <= 1:
+            return ()
+        if in_experts:
+            spec = _expert_rule(name, shape, model, fsdp, dp_axes)
+        else:
+            spec = _param_rule(name, shape, eff_model, fsdp, dp_axes)
+        return (None, *spec) if stacked else spec
+
+    return _map_with_path(one, tree)
+
+
+def cache_specs(tree, mesh):
+    """Decode caches: KV (B, Hkv, S, hd) -- batch on dp when divisible,
+    else sequence/slots on dp (context parallel for batch-1 long decode);
+    kv-heads on model when divisible, else the slots (never head_dim, the
+    q.k contraction dim). Recurrent states: model on the largest remaining
+    dim. Stacked leaves (a dict under "groups") take a leading None."""
+    model, fsdp, dp_axes = _mesh_sizes(mesh)
+    dp = dp_axes if len(dp_axes) > 1 else dp_axes[0]
+
+    def one(path, leaf):
+        name = str(path[-1]) if path else ""
+        stacked = _stacked(list(path))
+        shape = tuple(leaf.shape[1:] if stacked else leaf.shape)
+        nd = len(shape)
+        spec = [None] * nd
+        if nd >= 2:
+            used_dp = False
+            if _div(shape[0], fsdp):            # batch
+                spec[0] = dp
+                used_dp = True
+            if name in ("k_scale", "v_scale") and nd == 3:  # (B, Hkv, S)
+                if _div(shape[1], model):
+                    spec[1] = "model"
+                elif _div(shape[2], model):
+                    spec[2] = "model"
+            elif name in ("k", "v") and nd == 4:  # (B, Hkv, S, hd)
+                if _div(shape[1], model):
+                    spec[1] = "model"
+                elif _div(shape[2], model):
+                    spec[2] = "model"
+                if not used_dp and _div(shape[2], fsdp) and spec[2] is None:
+                    spec[2] = dp                # context-parallel slots
+            else:
+                order = sorted(range(1, nd), key=lambda i: -shape[i])
+                for i in order:
+                    if _div(shape[i], model):
+                        spec[i] = "model"
+                        break
+                if not used_dp:
+                    for i in order:
+                        if spec[i] is None and _div(shape[i], fsdp):
+                            spec[i] = dp
+                            break
+        if stacked:
+            spec = [None] + spec
+        return tuple(spec)
+
+    return _map_with_path(one, tree)
+
+
+def batch_specs(tree, mesh):
+    """Model inputs: batch on dp when divisible, the rest replicated."""
+    _, fsdp, dp_axes = _mesh_sizes(mesh)
+    dp = dp_axes if len(dp_axes) > 1 else dp_axes[0]
+
+    def one(_, leaf):
+        if not leaf.shape:
+            return ()
+        first = dp if _div(leaf.shape[0], fsdp) else None
+        return (first, *([None] * (len(leaf.shape) - 1)))
+
+    return _map_with_path(one, tree)
+
+
+# ---------------------------------------------------------------- DTensor
+def to_placements(spec: Sequence, mesh) -> tuple:
+    """The DTensor placements (one per mesh dim) of a spec: `Shard(i)` on
+    every mesh dim that tensor dim i is split over (a dim on ("pod",
+    "data") takes `Shard(i)` on both, pod-major as the reference's
+    PartitionSpec splits it), `Replicate()` on the others. A mesh dim of
+    size 1 splits nothing: it takes `Replicate()`, the same layout, which
+    spares DTensor's planner the views of one-way splits."""
+    from torch.distributed.tensor import Replicate, Shard
+    sizes = axis_sizes(mesh)
+    names = tuple(sizes)
+    out = [Replicate()] * len(names)
+    taken = set()
+    for i, entry in enumerate(spec):
+        if entry is None:
+            continue
+        for name in ((entry,) if isinstance(entry, str) else entry):
+            j = names.index(name)
+            if j in taken:
+                raise ValueError(f"mesh axis {name!r} shards two dims of "
+                                 f"spec {spec}")
+            taken.add(j)
+            if sizes[name] > 1:
+                out[j] = Shard(i)
+    return tuple(out)
+
+
+def layout(mesh, batch, heads_dim=None) -> tuple:
+    """Placements per mesh dim of a local region's operand: dim 0 (the
+    batch, of size `batch`) on the dp mesh dims where it divides them,
+    `heads_dim` on "model", the rest (and every mesh dim of size 1)
+    replicated."""
+    from torch.distributed.tensor import Replicate, Shard
+    sizes = axis_sizes(mesh)
+    dp = fsdp_axes(tuple(sizes))
+    dp_size = math.prod(sizes.get(a, 1) for a in dp)
+    on_dp = batch is not None and _div(batch, dp_size)
+    out = []
+    for name, size in sizes.items():
+        if size > 1 and name in dp and on_dp:
+            out.append(Shard(0))
+        elif size > 1 and name == "model" and heads_dim is not None:
+            out.append(Shard(heads_dim))
+        else:
+            out.append(Replicate())
+    return tuple(out)
+
+
+def run_local(fn, mesh, args, in_placements, out_placements):
+    """`fn` on each rank's local shards of `args` (redistributed to
+    `in_placements` first; plain tensors taken as replicated) in a
+    `local_map` region, its outputs wrapped as DTensors placed by
+    `out_placements` (one placement tuple, or a tuple of them for several
+    outputs). An input replicated over a mesh dim that the outputs are
+    split over (sharded or partial there) gets a `Partial` gradient
+    there: each rank's local gradient covers its own part of the work. So
+    a region either splits its work over a mesh dim or repeats all of it
+    there."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    several = isinstance(out_placements[0], tuple)
+    outs = out_placements if several else (out_placements,)
+    split = [any(isinstance(o[j], (Shard, Partial)) for o in outs)
+             for j in range(mesh.ndim)]
+    grads = tuple(tuple(Partial() if split[j] and pl == Replicate() else pl
+                        for j, pl in enumerate(ins))
+                  for ins in in_placements)
+    out_arg = tuple(list(o) for o in outs) if several else list(outs[0])
+    return local_map(fn, out_placements=out_arg,
+                     in_placements=tuple(in_placements),
+                     in_grad_placements=grads, device_mesh=mesh,
+                     redistribute_inputs=True)(
+        *(replicated(x, mesh) for x in args))
+
+
+def is_spec(x) -> bool:
+    return isinstance(x, tuple) and all(
+        e is None or isinstance(e, (str, tuple)) for e in x)
+
+
+def distribute(tree, specs, mesh, src_data_rank: Optional[int] = 0):
+    """Every tensor leaf of `tree` as a DTensor on `mesh`, placed by the
+    spec at the same path in `specs` (`param_specs`, `batch_specs`,
+    `cache_specs`). Each rank must hold the same full leaf: the shards
+    come from rank `src_data_rank`'s (None: each rank cuts its own shard
+    from its own leaf, with no collective)."""
+    from torch.distributed.tensor import distribute_tensor
+
+    def walk(t, s):
+        if isinstance(t, dict):
+            return {k: walk(v, s[k]) for k, v in t.items()}
+        if isinstance(t, list):
+            return [walk(v, s[i]) for i, v in enumerate(t)]
+        if not hasattr(t, "shape"):
+            return t
+        return distribute_tensor(t, mesh, to_placements(s, mesh),
+                                 src_data_rank=src_data_rank)
+
+    return walk(tree, specs)
+
+
+def local_bytes(tree) -> int:
+    """Bytes of the local shards of every tensor leaf (the whole tensor
+    for a plain one): what one rank holds of the tree."""
+    sizes = []
+
+    def one(_, t):
+        local = t.to_local() if is_dtensor(t) else t
+        sizes.append(local.numel() * local.element_size())
+
+    _map_with_path(one, tree)
+    return sum(sizes)

@@ -9,7 +9,10 @@ and biases are exempt). `update` writes the parameters and moments in
 place, where the reference's jitted step donates them. The step count and
 the learning rate are host numbers, the learning rate computed in float32
 as the reference's traced schedule computes it, so a step reads nothing
-back from the card.
+back from the card. DTensor parameters (a model on a mesh) keep DTensor
+moments of the same placements; a gradient is redistributed to its
+parameter's placements first, and the global norm sums each rank's
+partial squares before the root.
 """
 from __future__ import annotations
 
@@ -19,6 +22,8 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+
+from repro_torch.sharding.policy import placed_like
 
 
 class AdamWState(NamedTuple):
@@ -72,11 +77,15 @@ def tree_map(fn, tree, *rest):
     return fn(tree, *rest)
 
 
+def zeros_f32(p: torch.Tensor) -> torch.Tensor:
+    """float32 zeros shaped and placed as `p` (a DTensor's on its mesh)."""
+    return torch.zeros_like(p, dtype=torch.float32,
+                            memory_format=torch.contiguous_format)
+
+
 def init(params) -> AdamWState:
-    def zeros(p):
-        return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-    return AdamWState(step=0, m=tree_map(zeros, params),
-                      v=tree_map(zeros, params))
+    return AdamWState(step=0, m=tree_map(zeros_f32, params),
+                      v=tree_map(zeros_f32, params))
 
 
 def schedule(cfg: AdamWConfig, step: int) -> float:
@@ -93,7 +102,8 @@ def schedule(cfg: AdamWConfig, step: int) -> float:
 
 def global_norm(tree) -> torch.Tensor:
     """sqrt of the sum of squares of every leaf, in float32 (a 0-dim
-    tensor on the leaves' device)."""
+    tensor on the leaves' device; of DTensor leaves a replicated 0-dim
+    DTensor, the partial sums reduced before the root)."""
     return torch.sqrt(sum(torch.sum(torch.square(x.to(torch.float32)))
                           for x in tree_leaves(tree)))
 
@@ -111,7 +121,7 @@ def update(cfg: AdamWConfig, grads, state: AdamWState, params):
     b2c = float(np.float32(1.0) - np.float32(cfg.b2) ** np.float32(step))
 
     def upd(g, m, v, p):
-        g = g.to(torch.float32) * scale
+        g = placed_like(g, p).to(torch.float32) * scale
         new_m = cfg.b1 * m + (1 - cfg.b1) * g
         new_v = cfg.b2 * v + (1 - cfg.b2) * g * g
         delta = (new_m / b1c) / (torch.sqrt(new_v / b2c) + cfg.eps)

@@ -10,7 +10,10 @@ one updates them in place and returns them. A model is either functional,
 and then `params` is `dict(model.named_parameters())`. Gradients come from
 `torch.autograd.grad`; on the card they run through the kernels'
 backward kernels (`kernels/`), on the CPU through autograd of the plain
-versions.
+versions. With DTensor parameters and batch (a model on a mesh, the step
+called under an activation policy) the step is the same program; the
+loss it reports is the replicated value as a plain tensor, and
+microbatches cut each rank's batch shard.
 """
 from __future__ import annotations
 
@@ -18,6 +21,7 @@ from typing import Callable, Optional
 
 import torch
 
+from repro_torch.sharding.policy import is_dtensor, placed_like
 from repro_torch.training import optimizer
 
 
@@ -37,17 +41,34 @@ def _grads_of(model, params, batch):
         t.requires_grad_(True)
     loss = _loss(model, params, batch)
     grads = iter(torch.autograd.grad(loss, leaves))
-    return loss.detach(), optimizer.tree_map(lambda _: next(grads), params)
+    loss = loss.detach()
+    if hasattr(loss, "full_tensor"):     # a DTensor: its replicated value
+        loss = loss.full_tensor()
+    return loss, optimizer.tree_map(lambda _: next(grads), params)
 
 
 def _split(batch: dict, n: int) -> list:
-    """The batch cut into n microbatches on its leading axis."""
-    size = next(iter(batch.values())).shape[0]
-    if size % n:
-        raise ValueError(f"batch {size} does not split into {n} "
-                         f"microbatches")
-    return [{k: v[i * (size // n):(i + 1) * (size // n)]
-             for k, v in batch.items()} for i in range(n)]
+    """The batch cut into n microbatches on its leading axis; a DTensor
+    batch on each rank's shard (microbatch i takes the i-th n-th of every
+    shard: another grouping of the same rows, each row's tokens weighted
+    alike, so the same mean)."""
+    def cut(v, i):
+        if is_dtensor(v):
+            from torch.distributed.tensor import DTensor
+            local = v.to_local()
+            size = local.shape[0] // n
+            return DTensor.from_local(local[i * size:(i + 1) * size],
+                                      v.device_mesh, v.placements,
+                                      run_check=False)
+        size = v.shape[0] // n
+        return v[i * size:(i + 1) * size]
+
+    for v in batch.values():
+        local = v.to_local() if is_dtensor(v) else v
+        if local.shape[0] % n:
+            raise ValueError(f"batch {local.shape[0]} does not split into "
+                             f"{n} microbatches")
+    return [{k: cut(v, i) for k, v in batch.items()} for i in range(n)]
 
 
 def make_train_step(model, opt_cfg: optimizer.AdamWConfig,
@@ -60,14 +81,13 @@ def make_train_step(model, opt_cfg: optimizer.AdamWConfig,
         if microbatches == 1:
             loss, grads = _grads_of(model, params, batch)
         else:
-            acc = optimizer.tree_map(
-                lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                      device=p.device), params)
+            acc = optimizer.tree_map(optimizer.zeros_f32, params)
             lsum = 0.0
             for mb in _split(batch, microbatches):
                 loss, g = _grads_of(model, params, mb)
-                optimizer.tree_map(lambda a, x: a.add_(x.to(torch.float32)),
-                                   acc, g)
+                optimizer.tree_map(
+                    lambda a, x: a.add_(placed_like(x, a)
+                                        .to(torch.float32)), acc, g)
                 lsum = lsum + loss
             grads = optimizer.tree_map(lambda a: a / microbatches, acc)
             loss = lsum / microbatches

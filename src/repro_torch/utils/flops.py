@@ -4,17 +4,14 @@ reference's (src/repro/utils/flops.py).
 The allocator's cost model (core.cost_model) consumes these, and
 `examples/llm_fleet_allocation.py` sizes its jobs with them.
 
-Param counts are exact by construction: the real model's init is drawn
-under `FakeTensorMode` (shapes and dtypes, no storage), the counterpart of
-the reference's `jax.eval_shape`, and its leaves' sizes are summed (no
-duplicated formulas to drift out of sync).
+Param counts are exact by construction: the real model's
+`param_specs()` (its init drawn under `FakeTensorMode`: shapes and dtypes,
+no storage, the counterpart of the reference's `jax.eval_shape`) has its
+leaves' sizes summed (no duplicated formulas to drift out of sync).
 """
 from __future__ import annotations
 
 from functools import lru_cache
-
-import torch
-from torch._subclasses.fake_tensor import FakeTensorMode
 
 from repro_torch.configs import base
 from repro_torch.configs.base import ModelConfig, ShapeConfig
@@ -25,10 +22,8 @@ from repro_torch.training.optimizer import tree_leaves
 def _param_specs(cfg: ModelConfig) -> tuple:
     """(elements, bytes per element) of every leaf of the model's init."""
     from repro_torch.models import build_model
-    generator = torch.Generator().manual_seed(0)
-    with FakeTensorMode():
-        params = build_model(cfg).init(generator, device="cpu")
-    return tuple((t.numel(), t.element_size()) for t in tree_leaves(params))
+    return tuple((t.numel(), t.element_size())
+                 for t in tree_leaves(build_model(cfg).param_specs()))
 
 
 def param_count(cfg: ModelConfig) -> int:

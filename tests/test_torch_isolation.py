@@ -129,6 +129,30 @@ def test_remat_utils_analysis_examples_load_neither_jax_nor_repro():
     assert out.stdout.strip() == ""
 
 
+def test_distribution_loads_neither_jax_nor_repro():
+    """The distribution slice's modules (the sharding policy, the EP MoE,
+    the mesh builders, the dry-run with its fake process group) and one
+    meshed `launch.train.run` of one rank on the CPU stay clear of jax
+    and repro."""
+    code = ("import sys\n"
+            "import repro_torch.sharding.policy\n"
+            "import repro_torch.sharding.ep_moe\n"
+            "import repro_torch.launch.mesh\n"
+            "import repro_torch.launch.dryrun as d\n"
+            "import repro_torch.launch.train as t\n"
+            "t.run('qwen2-1.5b', reduced=True, steps=1, batch=2, seq=16,"
+            " device='cpu', mesh='host', log_fn=lambda *_: None)\n"
+            "bad = sorted(m for m in sys.modules if m == 'jax' or "
+            "m.startswith('jax.') or m == 'repro' or "
+            "m.startswith('repro.'))\n"
+            "print(','.join(bad))\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120,
+                         check=True)
+    assert out.stdout.strip() == ""
+
+
 def _imports(path):
     for node in ast.walk(ast.parse(path.read_text(), str(path))):
         if isinstance(node, ast.Import):
