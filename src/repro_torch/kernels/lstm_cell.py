@@ -173,10 +173,9 @@ def lstm_cell(x: torch.Tensor, h: torch.Tensor, c: torch.Tensor,
     build.check_card("lstm_cell", x)
     if _wants_grad(x, h, c, wx, wh, b):
         raise NotImplementedError(
-            "lstm_cell has no backward kernel: the one-step kernel is on no "
-            "training path (ICULSTM trains through lstm_sequence, whose "
-            "backward is lstm_sequence_backward); its backward is ROADMAP "
-            "queue 2 item 1")
+            "lstm_cell has no gradient, as the reference's Pallas cell has "
+            "none (jax.grad through it raises): ICULSTM trains through "
+            "lstm_sequence, whose backward is lstm_sequence_backward")
     bsz, i_dim = x.shape
     h_dim = h.shape[1]
     if (i_dim + h_dim) * 4 > _MAX_SMEM_BYTES:

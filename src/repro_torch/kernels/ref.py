@@ -25,6 +25,22 @@ def _recomputed(fn, *args):
     return fn(*args)
 
 
+def walk(step, n: int, carry, inputs: tuple = (), *, dim: int = 1,
+         join=torch.stack):
+    """The loop of a plain scan: `carry, y = step(t, carry, *inputs)` for
+    t = 0 ... n - 1 (n >= 1), the outputs joined along `dim` by `join`
+    (`torch.stack`, or `torch.cat` where each output is a block of the
+    sequence). Returns (carry, joined). Every per-step or per-block loop
+    of the plain versions runs through this function and reads the
+    sequence through `inputs`, so that a tracer can stand in for the loop
+    (`launch/dryrun.py` traces a few steps of a long scan)."""
+    ys = []
+    for t in range(n):
+        carry, y = step(t, carry, *inputs)
+        ys.append(y)
+    return carry, join(ys, dim=dim)
+
+
 def lstm_cell_reference(x: torch.Tensor, h: torch.Tensor, c: torch.Tensor,
                         wx: torch.Tensor, wh: torch.Tensor,
                         b: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -141,8 +157,7 @@ def attention_blockwise(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     # each q block recomputed in the backward: no block's (bq, Lk)
     # probabilities are kept (the reference's jax.checkpoint per block)
-    blocks = []
-    for qi in range(lq // bq):
+    def step(qi, carry, q, kf, vf):
         qb = q[:, :, qi * bq:(qi + 1) * bq]
         q_pos = qi * bq + torch.arange(bq, device=q.device)[:, None] + q_off
         if use_slice:
@@ -153,8 +168,9 @@ def attention_blockwise(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             start = 0
             kb, vb = kf, vf
         k_pos = start + torch.arange(kwin, device=q.device)[None, :]
-        blocks.append(_recomputed(block, qb, kb, vb, q_pos, k_pos))
-    return torch.cat(blocks, dim=2)
+        return carry, _recomputed(block, qb, kb, vb, q_pos, k_pos)
+
+    return walk(step, lq // bq, None, (q, kf, vf), dim=2, join=torch.cat)[1]
 
 
 def ssm_scan_reference(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
@@ -182,14 +198,18 @@ def ssm_scan_reference(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
         state = torch.zeros((bs, h, p, n), dtype=f32, device=x.device)
     else:
         state = h0.to(f32)
-    ys = []
-    for t in range(l):
+
+    def step(t, state, xf, dtf, bf, cf):
         xt, dtt, bt, ct = xf[:, t], dtf[:, t], bf[:, t], cf[:, t]
         decay = torch.exp(dtt * af[None, :])                  # (B, H)
         upd = torch.einsum("bhp,bn->bhpn", xt * dtt[..., None], bt)
         state = state * decay[..., None, None] + upd
-        ys.append(torch.einsum("bhpn,bn->bhp", state, ct))
-    y = torch.stack(ys, dim=1) if ys else xf.new_zeros((bs, 0, h, p))
+        return state, torch.einsum("bhpn,bn->bhp", state, ct)
+
+    if l:
+        state, y = walk(step, l, state, (xf, dtf, bf, cf))
+    else:
+        y = xf.new_zeros((bs, 0, h, p))
     y = y + xf * d.to(f32)[None, None, :, None]
     return y.to(x.dtype), state
 
@@ -267,13 +287,13 @@ def mlstm_chunk_torch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     # each chunk recomputed in the backward: no chunk's (T, T) weights are
     # kept (the reference scans its chunks under jax.checkpoint)
-    ys = []
-    for c0 in range(0, l, t):
-        y_c, c_in, n_in, m_in = _recomputed(
-            body, *(x[:, c0:c0 + t] for x in (q, k, v, i_gate, f_gate)),
-            c_in, n_in, m_in)
-        ys.append(y_c)
-    y = torch.cat(ys, dim=1)
+    def step(i, state, *seq):
+        y_c, *state = _recomputed(
+            body, *(x[:, i * t:(i + 1) * t] for x in seq), *state)
+        return tuple(state), y_c
+
+    (c_in, n_in, m_in), y = walk(step, l // t, (c_in, n_in, m_in),
+                                 (q, k, v, i_gate, f_gate), join=torch.cat)
     return y.to(q.dtype), (c_in, n_in, m_in)
 
 
@@ -304,8 +324,9 @@ def mlstm_chunk_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
          if n0 is None else n0.to(f32))
     m = (torch.full((bs, h), NEG_INF, dtype=f32, device=q.device)
          if m0 is None else m0.to(f32))
-    ys = []
-    for t in range(l):
+
+    def step(t, state, qf, kf, vf, ig, fg):
+        c, n, m = state
         qt, kt, vt = qf[:, t], kf[:, t], vf[:, t]
         log_f = torch.nn.functional.logsigmoid(fg[:, t])      # (B, H)
         m_new = torch.maximum(log_f + m, ig[:, t])
@@ -317,7 +338,10 @@ def mlstm_chunk_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         num = torch.einsum("bhde,bhd->bhe", c, qt)
         den = torch.maximum(torch.abs(torch.einsum("bhd,bhd->bh", n, qt)),
                             torch.exp(-m_new))
-        ys.append(num / den[..., None])
-        m = m_new
-    y = torch.stack(ys, dim=1) if ys else qf.new_zeros((bs, 0, h, d))
+        return (c, n, m_new), num / den[..., None]
+
+    if l:
+        (c, n, m), y = walk(step, l, (c, n, m), (qf, kf, vf, ig, fg))
+    else:
+        y = qf.new_zeros((bs, 0, h, d))
     return y.to(q.dtype), (c, n, m)

@@ -66,11 +66,24 @@ def _hd_sharded(w, dim: int) -> bool:
     return any(pl == Shard(dim) for pl in w.placements)
 
 
+def _d_split(x) -> bool:
+    """A DTensor whose last dim (d_model) is split on a mesh dim."""
+    if not policy.is_dtensor(x):
+        return False
+    from torch.distributed.tensor import Shard
+    return any(pl == Shard(x.ndim - 1) for pl in x.placements)
+
+
 def project_heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """einsum("bld,dhe->bhle"): (B, L, d) @ (d, H, hd) -> (B, H, L, hd).
     With head_dim split on a mesh dim (`_hd_sharded`), the product runs
     over (d, hd * H) with head_dim outermost, so the split stays one even
-    block per rank; einsum's (H * hd) would split inside heads."""
+    block per rank; einsum's (H * hd) would split inside heads. Tokens
+    split on d_model run on local shards under autograd
+    (`_local_heads`)."""
+    if (_d_split(x) and torch.is_grad_enabled()
+            and (x.requires_grad or w.requires_grad)):
+        return _local_heads(x, w)
     if not _hd_sharded(w, 2):
         return torch.einsum("bld,dhe->bhle", x, w)
     d, h, e = w.shape
@@ -86,6 +99,30 @@ def project_out(y: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
     b, h, l, e = y.shape
     return (y.permute(0, 2, 3, 1).reshape(b, l, e * h)
             @ wo.permute(1, 0, 2).reshape(e * h, wo.shape[-1]))
+
+
+def _local_heads(x, w):
+    """`project_heads` on local shards in a `local_map` region (column
+    parallel): x with its batch on dp and its d_model gathered, w with its
+    heads (or head_dim) split as placed and its FSDP split of d_model
+    gathered; the output split as both. Given tokens split on d_model (the
+    encoder-decoder's embedding), DTensor's einsum makes each rank a
+    partial sum over the whole batch, and the backward's view of that
+    gradient does not fit the local strides (seamless-m4t's train step on
+    16 x 16)."""
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = x.device_mesh
+    heads = (Shard(1), Shard(2))
+    w_pl = (tuple(pl if pl in heads else Replicate() for pl in w.placements)
+            if policy.is_dtensor(w) else (Replicate(),) * mesh.ndim)
+    x_pl = policy.layout(mesh, x.shape[0])
+    out = tuple(xp if xp == Shard(0) else
+                Shard(1) if wp == Shard(1) else
+                Shard(3) if wp == Shard(2) else Replicate()
+                for xp, wp in zip(x_pl, w_pl))
+    return policy.run_local(
+        lambda xl, wl: torch.einsum("bld,dhe->bhle", xl, wl), mesh, (x, w),
+        (x_pl, w_pl), out)
 
 
 def _qkv(p: dict, x: torch.Tensor, states: Optional[torch.Tensor]):

@@ -580,11 +580,13 @@ def _slstm_scan(cfg, xg, r_gates, gate_bias):
     state = tuple(torch.zeros((bsz, d), dtype=f32, device=xg.device)
                   for _ in range(3)) + (
         torch.full((bsz, d), -1e30, dtype=f32, device=xg.device),)
-    ys = []
-    for t in range(l):
+
+    def step(t, state, xg):
         state = _slstm_step(step_p, cfg, xg[:, t], state)
-        ys.append(state[0])
-    return (torch.stack(ys, dim=1), *state)
+        return state, state[0]
+
+    state, y = ref.walk(step, l, state, (xg,))
+    return (y, *state)
 
 
 def _apply_slstm(p, x, ctx, cache, mode):

@@ -192,6 +192,18 @@ def test_sharded_loss_and_grads_match_single_device(ranks, arch):
     assert res["residual"] == want
 
 
+def test_sharded_encdec_step_matches_single_device(ranks):
+    """The encoder-decoder's loss and every gradient on the (2 x 2) mesh
+    with one head per model rank (the layout of seamless-m4t-large-v2 on
+    16 x 16) against one device, at the bars of the other archs' step."""
+    res = _case(ranks, "encdec")
+    assert abs(res["loss_sharded"] - res["loss_single"]) <= 1e-5, res
+    assert res["nonzero"]
+    bad = {k: v for k, v in res["grad_rel"].items() if not v <= 1e-3}
+    assert not bad, bad
+    assert res["residual"] == "seq"
+
+
 @pytest.mark.parametrize("arch,kv,mesh", torch_dist_cases.DECODE_CASES,
                          ids=["-".join(c) for c in
                               torch_dist_cases.DECODE_CASES])

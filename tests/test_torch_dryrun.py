@@ -172,6 +172,109 @@ def test_variant_for_shape_and_microbatches_match_reference():
                 arch))
 
 
+# ------------------------------------------------- scaled against full
+# one reduced-depth config of each family at full width: 4 groups (in
+# each stack of the encoder-decoder; the longer patterns cut to one block
+# of each kind, so that the full traces stay short), a train step of 3
+# microbatches and prefill / decode of 8 tokens, traced in full and cut
+# to 2 and 3 groups, 2 microbatches and 4 of the scans' 8 steps
+FAMILIES = {"dense": "gemma2-27b", "moe": "mixtral-8x7b",
+            "hybrid": "zamba2-2.7b", "ssm": "xlstm-350m",
+            "vlm": "llama-3.2-vision-11b", "audio": "seamless-m4t-large-v2"}
+FAMILY_CODE = r"""
+import dataclasses, json, sys
+from repro_torch.configs import base, get_config
+from repro_torch.configs.base import ShapeConfig
+from repro_torch.launch import dryrun
+arch = sys.argv[1]
+if arch == "seamless-one-head-a-rank":
+    # the train step that raised in DTensor's backward (the view of a
+    # projection's gradient, a whole-microbatch partial sum):
+    # seamless-m4t-large-v2 cut to one group a stack, one head a "model"
+    # rank, 2 microbatches of 32
+    cfg = dryrun.at_depth(get_config("seamless-m4t-large-v2"), 1)
+    rec = dryrun.run_case(arch, "train", cfg=cfg, microbatches=2,
+                          shape=ShapeConfig("train", 16, 64, "train"),
+                          full=True, verbose=False)
+    print(json.dumps(rec))
+    sys.exit()
+cfg = get_config(arch)
+pattern = {"zamba2-2.7b": (base.MAMBA, base.SHARED_ATTN),
+           "xlstm-350m": (base.MLSTM, base.SLSTM),
+           "llama-3.2-vision-11b": (base.ATTN, base.CROSS)}.get(arch)
+if pattern:
+    cfg = dataclasses.replace(cfg, group_pattern=pattern, num_groups=0,
+                              num_layers=len(pattern))
+cfg = dryrun.at_depth(cfg, 4)
+mb = 3
+out = {}
+for shape, m in ((ShapeConfig("train", 8, 16 * mb, "train"), mb),
+                 (ShapeConfig("prefill", 8, 16, "prefill"), 1),
+                 (ShapeConfig("decode", 8, 16, "decode"), 1)):
+    out[shape.kind] = [dryrun.run_case(arch, shape.name, cfg=cfg,
+                                       shape=shape, microbatches=m,
+                                       verbose=False, **kw)
+                       for kw in ({"full": True}, {})]
+print(json.dumps(out))
+"""
+
+
+@pytest.fixture(scope="module")
+def families():
+    """{family: {kind: (full record, scaled record)}} and the seamless
+    reproduction's record, each family in a process of its own (the fake
+    process group is global state), all at once."""
+    env = dict(os.environ, PYTHONPATH=SRC)
+    runs = dict(FAMILIES, seamless="seamless-one-head-a-rank")
+    procs = {name: subprocess.Popen(
+        [sys.executable, "-c", FAMILY_CODE, arch], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, env=env)
+        for name, arch in runs.items()}
+    out = {}
+    for name, proc in procs.items():
+        stdout, stderr = proc.communicate(timeout=900)
+        assert proc.returncode == 0, (name, stderr[-3000:])
+        out[name] = json.loads(stdout.strip().splitlines()[-1])
+    return out
+
+
+@pytest.mark.parametrize("kind", ["train", "prefill", "decode"])
+@pytest.mark.parametrize("family", FAMILIES)
+def test_scaled_trace_records_what_the_full_trace_records(families, family,
+                                                          kind):
+    """The cut trace's record against the full one's: FLOPs, collective
+    bytes and counts by op and argument bytes exactly; the activation
+    peak within 1% (the module's rule: a full trace's own peak moves by
+    ~0.2% with what DTensor's and FakeTensor's caches already hold, which
+    the traces before it in the process decide)."""
+    full, scaled = families[family][kind]
+    assert full["traced"] is None
+    traced = scaled["traced"]
+    assert traced["groups"] == [2, 3]
+    assert traced["microbatches"] == (2 if kind == "train" else None)
+    walks = family in ("hybrid", "ssm") and kind != "decode"
+    assert traced["scan_steps"] == (4 if walks else None)
+    assert scaled["flops"] == full["flops"] > 0
+    assert scaled["collectives"] == full["collectives"]
+    assert (scaled["memory"]["argument_bytes_by_tree"]
+            == full["memory"]["argument_bytes_by_tree"])
+    peak = scaled["memory"]["activation_peak_bytes"]
+    want = full["memory"]["activation_peak_bytes"]
+    assert abs(peak["Total"] - want["Total"]) <= 0.01 * want["Total"]
+    assert peak["Total"] == sum(v for k, v in peak.items() if k != "Total")
+
+
+def test_seamless_train_step_with_one_head_a_rank_traces(families):
+    """seamless-m4t-large-v2's train step, one group a stack at its 16
+    heads on the 16-wide "model" axis: the decoder's embedded tokens,
+    split on d_model, made DTensor's einsum in `project_heads` a partial
+    sum over the whole microbatch, whose gradient's view raised in the
+    backward; the projections now run on local shards."""
+    rec = families["seamless"]
+    assert rec["traced"] is None and rec["step_kind"] == "train"
+    assert rec["flops"] > 0 and rec["collectives"]["total_bytes"] > 0
+
+
 def test_input_specs_match_reference():
     """The stand-ins' shapes are the reference's (tokens int64 here)."""
     from torch._subclasses.fake_tensor import FakeTensorMode
@@ -185,3 +288,77 @@ def test_input_specs_match_reference():
             assert sorted(got) == sorted(want)
             for k, v in want.items():
                 assert tuple(got[k].shape) == v.shape, (arch, name, k)
+
+
+# ---------------------------------------------------------------- cut walks
+def _walk_trace(walk: str, mode: str, cut: bool) -> tuple:
+    """(flops, activation peak, walks cut) of one plain scan on fake
+    inputs, traced as the dry-run traces a step, its walk cut or run in
+    full: under no_grad, under grad, or in a non-reentrant checkpoint
+    (remat's two forwards)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.utils.checkpoint import checkpoint
+    from repro_torch.kernels import ref
+    from repro_torch.models import blocks
+    steps, b = 20, 2
+    tracker = dryrun.memory_tracker()
+    rec = dryrun.CaseRecorder(tracker)
+    # the scans' zero states are made outside the mode, as in a trace
+    with FakeTensorMode(allow_non_fake_inputs=True):
+        x = torch.randn(b, steps, 5, 64, requires_grad=True)
+        dt = torch.rand(b, steps, 5, requires_grad=True)
+        a, d = -torch.rand(5), torch.randn(5)
+        bc = torch.randn(b, steps, 64, requires_grad=True)
+        xg = torch.randn(b, steps, 4 * 256, requires_grad=True)
+        r_gates = torch.randn(4, 4, 64, 64, requires_grad=True)
+        bias = torch.randn(4 * 256, requires_grad=True)
+
+    class Cfg:
+        d_model, num_heads = 256, 4
+
+    def loss(x, dt, bc, xg):
+        if walk == "ssm":
+            y = ref.ssm_scan_reference(x, dt, a, bc, bc * 2, d)[0]
+        elif walk == "slstm":
+            y = blocks._slstm_scan(Cfg, xg, r_gates, bias)[0]
+        elif walk == "attention":
+            q = x.permute(0, 2, 1, 3)
+            y = ref.attention_blockwise(q, q * 2, q * 3, window=6,
+                                        block_q=2)
+        else:
+            q = x[..., :16].reshape(b, steps, 2, 40)
+            fn = (ref.mlstm_chunk_reference if walk == "mlstm_steps" else
+                  lambda *g: ref.mlstm_chunk_torch(*g, chunk=2))
+            y = fn(q, q * 2, q * 3, dt[..., :2], dt[..., 2:4])[0]
+        return (y ** 2).sum()
+
+    args = (x, dt, bc, xg)
+    with dryrun._traced(rec, cut) as walker, tracker, rec:
+        if mode == "no_grad":
+            with torch.no_grad():
+                loss(*args)
+        else:
+            out = (loss(*args) if mode == "grad" else
+                   checkpoint(loss, *args, use_reentrant=False))
+            torch.autograd.grad(out, args, allow_unused=True)
+    peak = dryrun._peak_by_type(tracker)
+    return rec.flops, peak["Total"], walker.cut
+
+
+@pytest.mark.parametrize("mode", ["no_grad", "grad", "checkpoint"])
+@pytest.mark.parametrize("walk", ["ssm", "slstm", "mlstm_steps",
+                                  "mlstm_chunks", "attention"])
+def test_cut_walk_records_what_the_full_walk_records(walk, mode):
+    """A walk of 20 steps (10 chunks or blocks for the chunked mLSTM
+    and the attention) cut to 4: the
+    FLOPs exactly the full walk's, forward and backward, remat's second
+    forward included; the activation peak the full walk's, but for the
+    cut walk's one-byte token."""
+    from repro_torch.kernels import ref
+    plain = ref.walk
+    full = _walk_trace(walk, mode, cut=False)
+    cut = _walk_trace(walk, mode, cut=True)
+    assert ref.walk is plain
+    assert full[2] == 0 and cut[2] == (2 if mode == "checkpoint" else 1)
+    assert cut[0] == full[0] > 0
+    assert 0 <= cut[1] - full[1] <= 1, (full, cut)

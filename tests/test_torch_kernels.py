@@ -283,3 +283,21 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setattr(cpp_ext, "CUDA_HOME", None)
     with pytest.raises(RuntimeError, match="nvcc not found"):
         build.build("lstm_cell")
+
+
+def test_reference_pallas_lstm_cell_has_no_gradient():
+    """What the port's `lstm_cell` mirrors by raising NotImplementedError
+    under grad on the card: `jax.grad` through the reference's Pallas
+    cell (interpret mode, as off the TPU) raises, so the reference has no
+    one-step gradient to port."""
+    import jax
+    rng = np.random.default_rng(0)
+    x, h, c, wx, wh, b = (
+        jnp.asarray(rng.standard_normal(s), jnp.float32)
+        for s in ((4, 8), (4, 16), (4, 16), (8, 4, 16), (16, 4, 16),
+                  (4, 16)))
+    h_new, _ = pallas_lstm_cell(x, h, c, wx, wh, b, interpret=True)
+    assert h_new.shape == (4, 16)
+    with pytest.raises(ValueError, match="Linearization failed"):
+        jax.grad(lambda x: pallas_lstm_cell(x, h, c, wx, wh, b,
+                                            interpret=True)[0].sum())(x)

@@ -95,13 +95,30 @@ def one_step(arch, mesh):
     the mesh (under the family's residual layout) and on one device, both
     built and chunked as ONE_STEP_ARCHS says."""
     from repro_torch.configs import get_config
-    from repro_torch.data.pipeline import make_batch, shard_batch
-    from repro_torch.models import build_model
-    from repro_torch.sharding import policy
     cfg = get_config(arch)
     cfg = cfg.reduced(layers=2 if len(cfg.group_pattern) <= 2 else None,
                       d_model=128, vocab=256)
-    remat, chunk = ONE_STEP_ARCHS[arch]
+    return _step_case(cfg, *ONE_STEP_ARCHS[arch], mesh)
+
+
+def encdec_step(mesh):
+    """`one_step` of the encoder-decoder (seamless-m4t-large-v2 reduced,
+    two groups a stack, remat) with as many heads as the mesh's model
+    axis: one head a rank, the layout whose attention projections'
+    backward the fake 16 x 16 mesh could not trace."""
+    from repro_torch.configs import get_config
+    heads = mesh.size(mesh.mesh_dim_names.index("model"))
+    cfg = get_config("seamless-m4t-large-v2").reduced(
+        layers=2, d_model=128, vocab=256)
+    cfg = dataclasses.replace(cfg, num_heads=heads, num_kv_heads=heads,
+                              head_dim=128 // heads)
+    return _step_case(cfg, True, 512, mesh)
+
+
+def _step_case(cfg, remat, chunk, mesh):
+    from repro_torch.data.pipeline import make_batch, shard_batch
+    from repro_torch.models import build_model
+    from repro_torch.sharding import policy
     model = build_model(cfg, remat=remat)
     p = model.init(torch.Generator().manual_seed(0), device="cpu")
     g = torch.Generator().manual_seed(1)
@@ -320,6 +337,7 @@ def run(rank, world, workdir):
     cases = {"qwen": lambda: qwen_training(workdir, mesh),
              **{f"one_step/{a}": (lambda a=a: one_step(a, mesh))
                 for a in ONE_STEP_ARCHS},
+             "encdec": lambda: encdec_step(mesh),
              **{f"decode/{a}/{kv}/{m}": (
                  lambda a=a, kv=kv, m=m: decode(a, kv, meshes[m],
                                                 DECODE_BATCH[m]))
