@@ -597,7 +597,10 @@ def _traced(recorder, cut: bool):
             return group0(self, gp, x, ctx, gcache, mode)
         call, g = self.dryrun_call
         self.dryrun_call[1] += 1
-        grad = torch.is_grad_enabled()
+        # marks only where a backward will run: a mark's view would keep
+        # the group's input alive past its last use (a prefill's peak
+        # +2 MiB)
+        grad = torch.is_grad_enabled() and x.requires_grad
         recorder.label = ("grp", call, "fwd", g)
         if grad:
             x = _Mark.apply(x, recorder, ("gap", call, "bwd", g))

@@ -322,6 +322,78 @@ def _mamba_split(cfg: ModelConfig, zxbcdt: torch.Tensor):
     return z, xbc, dt_raw
 
 
+def _heads_on_model(cfg: ModelConfig, hid) -> int:
+    """The "model" ranks that split the mamba block's heads
+    (`_mamba_local`): the "model" dim of DTensor `hid`'s mesh where it
+    divides the heads, else 1."""
+    if not policy.is_dtensor(hid):
+        return 1
+    tp = policy.axis_sizes(hid.device_mesh).get("model", 1)
+    return tp if tp > 1 and cfg.ssm_num_heads % tp == 0 else 1
+
+
+def _mamba_local(cfg: ModelConfig, p: dict, hid, tp: int):
+    """The mixer from the input projection to the gated norm, each
+    "model" rank's heads on that rank, in a `run_local` region: its
+    columns of w_in (its heads' z, x and dt, and all of B and C, which
+    every head reads; the weight gathered whole), of the conv, and of the
+    per-head and per-channel parameters; the norm's sum of squares summed
+    over "model". The split points of the (z, x, B, C, dt) product fall
+    inside w_in's "model" shards, so DTensor would gather the product over
+    "model" to slice it, its own plan of the product repeats it on every
+    dp rank, and its backward of a norm over a split dim gathers the batch
+    over dp. Each rank's B and C feed only its own heads, so the region's
+    work is split over "model" and its inputs' gradients are partial sums
+    there. Returns the normed y (B, L, d_inner), split on "model", and the
+    conv's new state and the SSM's final state."""
+    from torch.distributed.nn.functional import all_reduce
+    from torch.distributed.tensor import Replicate
+    d_inner = cfg.ssm_expand * cfg.d_model
+    n, h, ph = cfg.ssm_state_dim, cfg.ssm_num_heads, cfg.ssm_head_dim
+    dr, hr = d_inner // tp, h // tp
+    mesh = hid.device_mesh
+    r = mesh.get_local_rank("model")
+    group = mesh.get_group("model")
+    x0, h0, dt0 = r * dr, r * hr, 2 * d_inner + 2 * n + r * hr
+    bsz, l = hid.shape[:2]
+    f32 = torch.float32
+
+    def body(hl, w, cw, cb, dt_bias, a_log, d_skip, gamma):
+        bl = hl.shape[0]
+        w = torch.cat([w[:, x0:x0 + dr], w[:, d_inner + x0:d_inner + x0 + dr],
+                       w[:, 2 * d_inner:2 * d_inner + 2 * n],
+                       w[:, dt0:dt0 + hr]], dim=1)
+        conv = {k: torch.cat([v[..., x0:x0 + dr], v[..., d_inner:]], dim=-1)
+                for k, v in (("w", cw), ("b", cb))}
+        zx = hl @ w
+        xbc, state = common.causal_conv_apply(conv, zx[..., dr:2 * dr + 2 * n])
+        xbc = F.silu(xbc)
+        dt = F.softplus(zx[..., -hr:].to(f32) + dt_bias[h0:h0 + hr])
+        y, final = ops.ssm(xbc[..., :dr].reshape(bl, l, hr, ph).contiguous(),
+                           dt.contiguous(), -torch.exp(a_log[h0:h0 + hr]),
+                           xbc[..., dr:dr + n].contiguous(),
+                           xbc[..., dr + n:].contiguous(), d_skip[h0:h0 + hr],
+                           chunk=cfg.ssm_chunk)
+        y = y.reshape(bl, l, dr) * F.silu(zx[..., :dr])
+        # common.rms_norm over d_inner, its mean a sum over the ranks
+        yf = y.to(f32)
+        var = all_reduce((yf * yf).sum(-1, keepdim=True), group=group)
+        y = (yf * torch.rsqrt(var / d_inner + cfg.norm_eps)
+             * (1.0 + gamma[x0:x0 + dr].to(f32))).to(y.dtype)
+        return y, state[..., :dr], state[..., dr:], final
+
+    rows = policy.layout(mesh, bsz)
+    heads = policy.layout(mesh, bsz, heads_dim=2)
+    rep = (Replicate(),) * mesh.ndim
+    args = (policy.summed_grad(hid), p["w_in"], p["conv"]["w"],
+            p["conv"]["b"], p["dt_bias"],
+            p["a_log"], p["d_skip"], p["norm_gate"])
+    y, sx, sbc, final = policy.run_local(
+        body, mesh, args, (rows,) + (rep,) * 7,
+        (heads, heads, rows, policy.layout(mesh, bsz, heads_dim=1)))
+    return y, {"conv": (sx, sbc), "ssm": final}
+
+
 def _apply_mamba(p, x, ctx, cache, mode):
     cfg = ctx["cfg"]
     d_inner = cfg.ssm_expand * cfg.d_model
@@ -331,6 +403,17 @@ def _apply_mamba(p, x, ctx, cache, mode):
     f32 = torch.float32
 
     hid = common.rms_norm(x, p["norm"], cfg.norm_eps)
+    tp = _heads_on_model(cfg, hid) if mode != "decode" else 1
+    if tp > 1:
+        y, new_cache = _mamba_local(cfg, p, hid, tp)
+        new_cache = ({"conv": torch.cat(new_cache["conv"], dim=-1),
+                      "ssm": new_cache["ssm"]} if mode == "prefill" else None)
+        # the out projection's partial sum summed here, in the residual's
+        # dtype (the next norm would sum it in float32, and DTensor's
+        # backward of that norm gathers the batch over dp)
+        x = policy.constrain_residual(x + y @ policy.gathered(p["w_out"]))
+        return x, new_cache, {}
+
     z, xbc, dt_raw = _mamba_split(cfg, hid @ p["w_in"])
     conv_state = cache["conv"] if mode == "decode" else None
     xbc, conv_state = common.causal_conv_apply(p["conv"], xbc, conv_state)
@@ -364,7 +447,10 @@ def _apply_mamba(p, x, ctx, cache, mode):
 
     y = y * F.silu(z)
     y = common.rms_norm(y, p["norm_gate"], cfg.norm_eps)
-    return x + y @ p["w_out"], new_cache, {}
+    # on a mesh the residual is summed at each block's end: given the out
+    # projection's partial sum, DTensor's plans of the next block's
+    # products repeat them on every dp rank (a batch-1 decode: 5x)
+    return policy.constrain_residual(x + y @ p["w_out"]), new_cache, {}
 
 
 # ============================================================== shared attn
@@ -384,17 +470,29 @@ def _apply_shared_attn(lora_p, x, ctx, cache, mode):
     specialised per group by a LoRA residual on the block input."""
     cfg = ctx["cfg"]
     shared = ctx["shared_attn"]
-    x = x + (x @ lora_p["lora_a"]) @ lora_p["lora_b"]
     window = cfg.long_context_window  # zamba2 shared attn is full by default
     if mode == "decode":
+        # the residual summed between the parts, as at the mamba block's
+        # end
+        x = policy.constrain_residual(
+            x + (x @ lora_p["lora_a"]) @ lora_p["lora_b"])
         x, cache_a = attention.attn_decode(shared["attn"], x, cache["attn"],
                                            ctx["pos"], cfg, window=window)
-        x = common.mlp_apply(shared["mlp"], x, cfg)
+        x = common.mlp_apply(shared["mlp"], policy.constrain_residual(x),
+                             cfg)
         return x, {"attn": cache_a}, {}
+    # the weights gathered off dp first: on the model-replicated residual,
+    # DTensor's own plan of a product with a weight split on dp repeats
+    # it on every dp rank
+    x = policy.summed_grad(x)
+    x = x + ((x @ policy.gathered(lora_p["lora_a"]))
+             @ policy.gathered(lora_p["lora_b"]))
     x, cache_a = attention.attn_full(
         shared["attn"], x, cfg, window=window,
         positions=ctx.get("positions"), make_cache=(mode == "prefill"),
         cache_len=ctx.get("cache_len", 0))
+    # the attention's partial sum summed here, in the residual's dtype
+    x = policy.constrain_residual(x)
     x = common.mlp_apply(shared["mlp"], x, cfg)
     return x, ({"attn": cache_a} if mode == "prefill" else None), {}
 

@@ -329,6 +329,11 @@ class DecoderModel:
         cfg = self.cfg
         x = common.rms_norm(x, p["final_norm"], cfg.norm_eps)
         w = p["embed"].t() if cfg.tie_embeddings else p["unembed"]
+        if torch.is_grad_enabled() and w.requires_grad:
+            # gathered off dp: with d_model split on dp, DTensor's backward
+            # of the product gathers the logits' gradient over dp, and the
+            # residual stream's gradient leaves it replicated there
+            w = policy.gathered(w)
         logits = (x @ w).to(torch.float32)
         if cfg.final_logit_softcap is not None:
             logits = common.softcap(logits, cfg.final_logit_softcap)

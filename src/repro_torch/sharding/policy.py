@@ -26,6 +26,15 @@ Two mechanisms, as there:
 While a policy is active, DTensor's `implicit_replication` is on too: the
 plain tensors the models make (rope frequencies, masks, zero states) mix
 with DTensors as replicated values.
+
+On a mesh with a "pod" axis, DTensors live on its `placement_mesh`: the
+same ranks as a 2-D ("data", "model") mesh whose "data" is pod x data,
+pod-major. "pod" is never named without "data" (`fsdp_axes`, the DP
+specs), so every layout of the 3-D mesh is one of the 2-D arrangement, and
+a dim split over ("pod", "data") is one `Shard` there, where the 3-D mesh
+takes a `Shard` on each of two mesh dims, whose views DTensor can only
+describe as `_StridedShard`s and whose redistributions it plans by
+searching a graph of layouts, op by op.
 """
 from __future__ import annotations
 
@@ -101,8 +110,37 @@ def current_policy() -> Optional[activation_policy]:
 
 
 def current_mesh():
+    """The placement mesh of the active policy's mesh, or None."""
     pol = current_policy()
-    return None if pol is None else pol.mesh
+    return None if pol is None else placement_mesh(pol.mesh)
+
+
+# a mesh with a "pod" axis -> (the mesh, its placement mesh)
+_PLACEMENT = {}
+
+
+def placement_mesh(mesh):
+    """The DeviceMesh that DTensors of `mesh`'s layouts are placed on:
+    `mesh` itself, or, for a mesh with a "pod" axis, the ("data", "model")
+    mesh of the same ranks in pod-major order (its "data" of size pod x
+    data, as the reference's PartitionSpec splits ("pod", "data")); made
+    once per mesh."""
+    names = tuple(mesh.mesh_dim_names)
+    if "pod" not in names:
+        return mesh
+    flat = _PLACEMENT.get(id(mesh))
+    if flat is None or flat[0] is not mesh:
+        from torch._subclasses.fake_tensor import unset_fake_temporarily
+        from torch.distributed.device_mesh import DeviceMesh
+        order = [names.index(a) for a in ("pod", "data", "model")]
+        with unset_fake_temporarily():     # the rank grid is real
+            ranks = mesh.mesh.permute(order)
+            ranks = ranks.reshape(ranks.shape[0] * ranks.shape[1],
+                                  ranks.shape[2])
+            flat = (mesh, DeviceMesh(mesh.device_type, ranks,
+                                     mesh_dim_names=("data", "model")))
+        _PLACEMENT[id(mesh)] = flat
+    return flat[1]
 
 
 def resolve(shape, spec: Sequence, pol: activation_policy) -> tuple:
@@ -126,10 +164,11 @@ def constrain(x, spec: Sequence):
     pol = current_policy()
     if pol is None or not is_dtensor(x):
         return x
-    placements = to_placements(resolve(x.shape, spec, pol), pol.mesh)
+    mesh = x.device_mesh
+    placements = to_placements(resolve(x.shape, spec, pol), mesh)
     if tuple(x.placements) == tuple(placements):
         return x
-    return x.redistribute(pol.mesh, placements)
+    return x.redistribute(mesh, placements)
 
 
 def constrain_residual(x):
@@ -152,6 +191,37 @@ def placed_like(x, ref):
     if is_dtensor(x) and tuple(x.placements) != tuple(ref.placements):
         return x.redistribute(ref.device_mesh, ref.placements)
     return x
+
+
+def split_on_model(w, dim: int) -> bool:
+    """DTensor `w` split on its dim `dim` over a "model" mesh dim."""
+    if not is_dtensor(w):
+        return False
+    from torch.distributed.tensor import Shard
+    return any(name == "model" and pl == Shard(dim)
+               for name, pl in zip(w.device_mesh.mesh_dim_names,
+                                   w.placements))
+
+
+def gathered(w):
+    """DTensor weight `w` with its FSDP split (on the dp mesh dims)
+    gathered and its "model" split kept, as FSDP gathers a weight before
+    its use; the backward reduce-scatters its gradient back. A plain
+    tensor, or a weight split on no dp dim, is returned as it is. Given a
+    weight still split on dp, DTensor's plan of a product may gather the
+    activations or their gradient over dp instead, and repeat the product
+    on every dp rank (the LM head's backward in zamba2-2.7b's train step,
+    16 x 16)."""
+    if not is_dtensor(w):
+        return w
+    from torch.distributed.tensor import Replicate
+    mesh = w.device_mesh
+    dp = fsdp_axes(tuple(mesh.mesh_dim_names))
+    placements = tuple(Replicate() if name in dp else pl for name, pl in
+                       zip(mesh.mesh_dim_names, w.placements))
+    if placements == tuple(w.placements):
+        return w
+    return w.redistribute(mesh, placements)
 
 
 def replicated(x, mesh):
@@ -179,6 +249,32 @@ class _GroupSum(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         return grad, None
+
+
+class _SummedGrad(torch.autograd.Function):
+    """The identity; its backward redistributes a DTensor gradient to the
+    input's placements."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.mesh, ctx.placements = x.device_mesh, tuple(x.placements)
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        if is_dtensor(grad) and tuple(grad.placements) != ctx.placements:
+            grad = grad.redistribute(ctx.mesh, ctx.placements)
+        return grad
+
+
+def summed_grad(x):
+    """DTensor `x` whose gradient is placed as `x` is, a partial sum (what
+    a `run_local` region gives an input it reads whole on a mesh dim its
+    work is split over) summed where it enters the graph before the
+    region: DTensor's backward of a norm given a partial gradient gathers
+    the batch over dp (Megatron's all-reduce of the activations'
+    gradient, here). A plain tensor is returned as it is."""
+    return _SummedGrad.apply(x) if is_dtensor(x) else x
 
 
 def group_sum(x, group):
@@ -390,9 +486,10 @@ def to_placements(spec: Sequence, mesh) -> tuple:
     """The DTensor placements (one per mesh dim) of a spec: `Shard(i)` on
     every mesh dim that tensor dim i is split over (a dim on ("pod",
     "data") takes `Shard(i)` on both, pod-major as the reference's
-    PartitionSpec splits it), `Replicate()` on the others. A mesh dim of
-    size 1 splits nothing: it takes `Replicate()`, the same layout, which
-    spares DTensor's planner the views of one-way splits."""
+    PartitionSpec splits it, or on the one "data" dim of a mesh without
+    "pod", a `placement_mesh`), `Replicate()` on the others. A mesh dim
+    of size 1 splits nothing: it takes `Replicate()`, the same layout,
+    which spares DTensor's planner the views of one-way splits."""
     from torch.distributed.tensor import Replicate, Shard
     sizes = axis_sizes(mesh)
     names = tuple(sizes)
@@ -401,7 +498,12 @@ def to_placements(spec: Sequence, mesh) -> tuple:
     for i, entry in enumerate(spec):
         if entry is None:
             continue
-        for name in ((entry,) if isinstance(entry, str) else entry):
+        axes = (entry,) if isinstance(entry, str) else tuple(entry)
+        if "pod" in axes and "pod" not in names:     # a placement mesh
+            if axes != ("pod", "data"):
+                raise ValueError(f"{entry} on a mesh without \"pod\"")
+            axes = ("data",)
+        for name in axes:
             j = names.index(name)
             if j in taken:
                 raise ValueError(f"mesh axis {name!r} shards two dims of "
@@ -466,12 +568,14 @@ def is_spec(x) -> bool:
 
 
 def distribute(tree, specs, mesh, src_data_rank: Optional[int] = 0):
-    """Every tensor leaf of `tree` as a DTensor on `mesh`, placed by the
-    spec at the same path in `specs` (`param_specs`, `batch_specs`,
-    `cache_specs`). Each rank must hold the same full leaf: the shards
-    come from rank `src_data_rank`'s (None: each rank cuts its own shard
-    from its own leaf, with no collective)."""
+    """Every tensor leaf of `tree` as a DTensor on `mesh` (on its
+    `placement_mesh`), placed by the spec at the same path in `specs`
+    (`param_specs`, `batch_specs`, `cache_specs`). Each rank must hold the
+    same full leaf: the shards come from rank `src_data_rank`'s (None:
+    each rank cuts its own shard from its own leaf, with no
+    collective)."""
     from torch.distributed.tensor import distribute_tensor
+    mesh = placement_mesh(mesh)
 
     def walk(t, s):
         if isinstance(t, dict):

@@ -18,6 +18,8 @@ A query row with no live key: the Pallas kernel, the port's kernel and
 averages over all keys (ROADMAP queue 3); so JAX is compared on rows that
 have a live key, and torch.autograd of the plain version on all rows.
 """
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -351,3 +353,114 @@ def test_loss_gradient_matches_jax_grad(arch, prompt):
         np.testing.assert_allclose(g.numpy(), w, rtol=0,
                                    atol=1e-3 * max(np.abs(w).max(), 1e-6),
                                    err_msg=name)
+
+
+# --------------------------------- xlstm's mLSTM gate biases against float64
+# the reference's loss in float64: JAX with x64 on, in a process of its
+# own, every `jnp.float32` the reference's model and kernel modules cast to
+# read as float64 there, the config's dtype float64, the same weights and
+# tokens (argv: an .npz of them in, an .npz of the gradients out)
+X64_CODE = r"""
+import dataclasses, importlib, pkgutil, sys
+import numpy as np
+import os
+
+import jax
+jax.config.update("jax_enable_x64", True)
+import jax.numpy as jnp
+import repro
+
+
+class F64:
+    def __getattr__(self, name):
+        return jnp.float64 if name == "float32" else getattr(jnp, name)
+
+
+for info in pkgutil.walk_packages(repro.__path__, "repro."):
+    if info.name.split(".")[1] in ("configs", "kernels", "models",
+                                   "sharding", "training", "utils"):
+        module = importlib.import_module(info.name)
+        if getattr(module, "jnp", None) is jnp:
+            module.jnp = F64()
+from repro.configs import get_config
+from repro.models import build_model
+
+d = np.load(sys.argv[1])
+cfg = get_config("xlstm-350m").reduced(d_model=128, vocab=256)
+cfg = dataclasses.replace(cfg, dtype="float64", num_layers=16, num_groups=2)
+params = {}
+for name in d.files:
+    if name != "tokens":
+        *path, leaf = name.split("/")
+        node = params
+        for key in path:
+            node = node.setdefault(key, {})
+        node[leaf] = jnp.asarray(d[name], jnp.float64)
+grads = jax.grad(build_model(cfg).loss)(
+    params, {"tokens": jnp.asarray(d["tokens"], jnp.int32)})
+flat = {}
+
+
+def walk(tree, prefix):
+    for key, value in tree.items():
+        if isinstance(value, dict):
+            walk(value, prefix + key + "/")
+        else:
+            flat[prefix + key] = np.asarray(value)
+
+
+walk(grads, "")
+np.savez(sys.argv[2], **flat)
+"""
+
+
+def test_mlstm_gate_bias_gradient_is_float32_rounding(tmp_path):
+    """xlstm-350m at two groups of eight blocks, 2 x 16 tokens (the case
+    where one mLSTM gate-bias entry sat 1.3e-3 of its leaf's largest entry
+    from `jax.grad`, bar 1e-3): against the reference's loss in float64,
+    the port's float32 gate-bias gradients are no further than the
+    reference's own float32 ones, leaf by leaf's worst entry over the
+    gate-bias leaves, scaled by each leaf's largest float64 entry. Both
+    are ~1e-3 from float64 (the bias's gradient sums cancelling terms),
+    so the 1.3e-3 is float32 rounding on both sides, not a port fault."""
+    import subprocess
+    import sys
+    pair = Pair("xlstm-350m", batch=2, prompt=16, num_layers=16,
+                num_groups=2)
+    ref_grads = jax.grad(pair.ref.loss)(pair.ref_params, pair.ref_batch())
+    leaves = list(_flat(pair.params))
+    for _, t in leaves:
+        t.requires_grad_(True)
+    # one intra-op thread: beside parallel test workers, a pool of
+    # threads is the bottleneck of a step's many small ops
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        loss = pair.model.loss(pair.params, pair.port_batch())
+        got = dict(zip((n for n, _ in leaves), torch.autograd.grad(
+            loss, [t for _, t in leaves])))
+    finally:
+        torch.set_num_threads(threads)
+    want32 = dict(_flat(jax.tree.map(np.asarray, ref_grads)))
+    weights = {name.strip("/"): a for name, a in _flat(pair.tree)}
+    np.savez(tmp_path / "in.npz", tokens=pair.tokens, **weights)
+    src = os.path.join(os.path.dirname(__file__), "..", "src")
+    out = subprocess.run(
+        [sys.executable, "-c", X64_CODE, str(tmp_path / "in.npz"),
+         str(tmp_path / "out.npz")], capture_output=True, text=True,
+        env=dict(os.environ, PYTHONPATH=src, JAX_PLATFORMS="cpu"),
+        timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    want64 = np.load(tmp_path / "out.npz")
+    gates = [n for n in want32 if n.endswith("gate_bias")]
+    assert len(gates) >= 7
+
+    def worst(a):
+        return max(np.abs(a[n].astype(np.float64) - want64[n.strip("/")])
+                   .max() / np.abs(want64[n.strip("/")]).max()
+                   for n in gates)
+
+    port = worst({n: got[n].numpy() for n in gates})
+    ref = worst(want32)
+    assert port <= ref, (port, ref)
+    assert ref < 5e-3

@@ -210,16 +210,19 @@ def test_sharded_encdec_step_matches_single_device(ranks):
 def test_sharded_decode_matches_single_device(ranks, arch, kv, mesh):
     """Decode steps on DTensor parameters and a cache placed by
     `cache_specs`: kv heads on model (2 x 2), the slots on model (1 x 4,
-    the flash-decode reduction) or, for a batch of one, on both "pod" and
-    "data" (2 x 2 x 1: the slot offset and the reduction span two mesh
-    dims), native and int8; logits within 1e-4 (tests/llm_parity.py's
-    float32 bar)."""
+    the flash-decode reduction) or, for a batch of one, on ("pod",
+    "data") (2 x 2 x 1: on the placement mesh, one "data" dim of the 4
+    ranks pod-major, the slot offset and the reduction over it), native
+    and int8; logits within 1e-4 (tests/llm_parity.py's float32 bar)."""
     res = _case(ranks, f"decode/{arch}/{kv}/{mesh}")
     assert res["max_abs"] < 1e-4, res
     want = {"2x2": ("Shard(dim=1)", 1), "1x4": ("Shard(dim=2)", 1),
-            "2x2x1": ("Shard(dim=2)", 2)}[mesh]
+            "2x2x1": ("Shard(dim=2)", 1)}[mesh]
     assert res["cache_placements"].count(want[0]) == want[1], \
         res["cache_placements"]
+    if mesh == "2x2x1":
+        assert res["cache_mesh"] == "{'data': 4, 'model': 1}", res
+        assert res["cache_placements"] == "(Shard(dim=2), Replicate())"
 
 
 def test_ep_moe_matches_tp_path_and_reference(ranks):

@@ -152,8 +152,9 @@ def _step_case(cfg, remat, chunk, mesh):
 # decode cases: (arch, kv cache dtype, mesh): kv heads on model (2 x 2),
 # and slots on model (1 x 4: 2 kv heads do not divide 4), int8 too;
 # gemma2's local layers on a ring of 8 slots that wraps; a batch of one
-# on (pod 2 x data 2 x model 1), its slots on ("pod", "data"): split over
-# two mesh dims, as long_500k's on the multi-pod mesh
+# on (pod 2 x data 2 x model 1), its slots on ("pod", "data"), as
+# long_500k's on the multi-pod mesh: one dim of 4 ranks, pod-major, of
+# the placement mesh
 DECODE_CASES = (("qwen2-1.5b", "native", "2x2"), ("qwen2-1.5b", "int8", "1x4"),
                 ("gemma2-27b", "native", "1x4"),
                 ("qwen2-1.5b", "native", "2x2x1"),
@@ -190,9 +191,11 @@ def decode(arch, kv, mesh, batch):
                 l1, c1 = model.decode_step(
                     dp, shard_batch({"t": t}, mesh)["t"], c1)
             worst = max(worst, float((_full(l1) - l0).abs().max()))
-    first = c1["groups"][0]["b0_" + cfg.group_pattern[0]]
+    first = c1["groups"][0]["b0_" + cfg.group_pattern[0]]["attn"]["k"]
     return {"max_abs": worst,
-            "cache_placements": str(first["attn"]["k"].placements)}
+            "cache_placements": str(first.placements),
+            "cache_mesh": str(dict(zip(first.device_mesh.mesh_dim_names,
+                                       first.device_mesh.shape)))}
 
 
 def ep_moe(workdir, mesh_1x4):

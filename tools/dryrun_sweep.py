@@ -2,18 +2,26 @@
 count a case's ops by call site.
 
   python tools/dryrun_sweep.py run OUT [--full] [--multi-pod]
-      [--shapes train_4k,long_500k] [--archs a,b] [--jobs 4]
-      [--timeout 420]
+      [--oracle [--unrolled]] [--shapes train_4k,long_500k] [--archs a,b]
+      [--jobs 4] [--timeout 420]
     each (arch, shape) case as `python -m repro_torch.launch.dryrun
-    --arch A --shape S --out OUT` in a process of its own under the time
-    limit, `--jobs` at a time; OUT/sweep.tsv gets one line a case: arch,
-    shape, exit code, wall seconds, the record's trace seconds and its
-    `traced` field.
+    --arch A --shape S --out OUT` (with --oracle, `python
+    tools/reference_dryrun.py A S --out OUT`: the reference's
+    compile) in a process of its own under the time limit, `--jobs` at a
+    time; OUT/sweep.tsv gets one line a case: arch, shape, exit code, wall
+    seconds, the record's trace (or compile) seconds and its `traced`
+    field (or how the oracle read it).
 
   python tools/dryrun_sweep.py compare SCALED FULL
     for every case in both directories (records the dry-run wrote):
     whether FLOPs, collective bytes and counts by op and argument bytes
     are equal, and the activation peak's relative difference.
+
+  python tools/dryrun_sweep.py compare-reference PORT REF
+    for every case in both directories (PORT: records the dry-run wrote;
+    REF: records tools/reference_dryrun.py wrote), one JSON line: port /
+    reference for FLOPs (the reference's dot FLOPs), argument bytes, and
+    collective bytes by op and in total.
 
   python tools/dryrun_sweep.py peak-rules ARCH SHAPE FULL
     the activation peak of a 16 x 16 case of more than 3 groups by three
@@ -24,9 +32,15 @@ count a case's ops by call site.
     line.
 
   python tools/dryrun_sweep.py profile ARCH SHAPE [--seconds 120]
-    ops of the case's trace by call site (the innermost frame in
+      [--multi-pod] [--top 12]
+    the case's traced ops by call site (the innermost frame in
     src/repro_torch outside the sharding policy and the dry-run) for the
-    given seconds, as one JSON line.
+    given seconds, as one JSON line: the sites with the most ops, the most
+    FLOPs and the most collective result bytes (by site and op); a
+    backward op counts at its forward op's site ("bwd", from the node's
+    traceback under anomaly mode). These are the traced ops' own: what
+    the dry-run adds for the repetitions it cuts (groups, microbatches,
+    scan steps) is not attributed.
 
 Run from the repository root; it sets PYTHONPATH=src for its children.
 Host arithmetic only: no device is measured.
@@ -37,6 +51,7 @@ import argparse
 import collections
 import json
 import os
+import re
 import signal
 import subprocess
 import sys
@@ -66,15 +81,21 @@ def _record_path(out, arch, shape, multi_pod):
 
 def run(args):
     os.makedirs(args.out, exist_ok=True)
-    env = dict(os.environ, PYTHONPATH=SRC)
+    env = dict(os.environ, PYTHONPATH=SRC, JAX_PLATFORMS="cpu")
     flags = (["--full"] if args.full else []) + (
-        ["--multi-pod"] if args.multi_pod else [])
+        ["--multi-pod"] if args.multi_pod else []) + (
+        ["--unrolled"] if args.unrolled else [])
 
     def one(case):
         arch, shape = case
-        cmd = ["timeout", str(args.timeout), sys.executable, "-m",
-               "repro_torch.launch.dryrun", "--arch", arch, "--shape",
-               shape, "--out", args.out, *flags]
+        if args.oracle:
+            cmd = [os.path.join(ROOT, "tools", "reference_dryrun.py"),
+                   arch, shape]
+        else:
+            cmd = ["-m", "repro_torch.launch.dryrun", "--arch", arch,
+                   "--shape", shape]
+        cmd = ["timeout", str(args.timeout), sys.executable, *cmd, "--out",
+               args.out, *flags]
         t0 = time.perf_counter()
         with open(os.path.join(args.out, f"{arch}.{shape}.log"), "w") as log:
             rc = subprocess.call(cmd, stdout=log, stderr=subprocess.STDOUT,
@@ -85,7 +106,8 @@ def run(args):
         if rc == 0 and os.path.exists(path):
             with open(path) as f:
                 rec = json.load(f)
-            trace_s, traced = rec["trace_seconds"], json.dumps(rec["traced"])
+            trace_s = rec.get("trace_seconds", rec.get("compile_seconds"))
+            traced = json.dumps(rec.get("traced", rec.get("read")))
         line = f"{arch}\t{shape}\t{rc}\t{wall:.1f}\t{trace_s}\t{traced}"
         print(line, flush=True)
         return line
@@ -129,6 +151,41 @@ def compare(args):
     return 0
 
 
+def compare_reference(args):
+    """Per case in both directories: the port's record over the
+    reference oracle's (tools/reference_dryrun.py): FLOPs over dot FLOPs,
+    argument bytes, collective bytes by op and in total (None where the
+    reference moves none)."""
+    def ratio(a, b):
+        return a / b if b else (None if a else 1.0)
+
+    names = sorted(n for n in set(os.listdir(args.port))
+                   & set(os.listdir(args.ref)) if n.endswith(".json"))
+    for name in names:
+        with open(os.path.join(args.port, name)) as f:
+            p = json.load(f)
+        with open(os.path.join(args.ref, name)) as f:
+            r = json.load(f)
+        pc, rc = p["collectives"], r["collectives"]
+        print(json.dumps({
+            "case": name[:-5], "flops": ratio(p["flops"], r["dot_flops"]),
+            "arguments": ratio(p["memory"]["argument_size_in_bytes"],
+                               r["memory"]["argument_size_in_bytes"]),
+            "argument_bytes": [p["memory"]["argument_size_in_bytes"],
+                               r["memory"]["argument_size_in_bytes"]],
+            "collectives": ratio(pc["total_bytes"], rc["total_bytes"]),
+            "collectives_by_op": {op: ratio(pc["bytes_by_op"][op],
+                                            rc["bytes_by_op"][op])
+                                  for op in rc["bytes_by_op"]},
+            "port": {"flops": p["flops"],
+                     "collective_bytes": pc["total_bytes"]},
+            "ref": {"dot_flops": r["dot_flops"],
+                    "collective_bytes": rc["total_bytes"],
+                    "read": r["read"],
+                    "compile_seconds": r["compile_seconds"]}}))
+    return 0
+
+
 def peak_rules(args):
     sys.path.insert(0, SRC)
     from repro_torch.configs import INPUT_SHAPES, get_config
@@ -166,27 +223,72 @@ def peak_rules(args):
 
 def profile(args):
     sys.path.insert(0, SRC)
+    import torch
+    from torch._guards import active_fake_mode
+    from torch._subclasses.fake_tensor import FakeTensor
+    from torch.utils import _pytree as pytree
     from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils.flop_counter import FlopCounterMode
     from repro_torch.launch import dryrun
 
     src = os.path.join(SRC, "repro_torch") + os.sep
     skip = ("sharding/policy.py", "launch/dryrun.py")
+    engine = "training/train_loop.py"     # where the step calls autograd
     counts = collections.Counter()
+    flops = collections.Counter()
+    coll = collections.Counter()
+    registry = FlopCounterMode().flop_registry
+
+    def _site():
+        """The innermost frame in src/repro_torch outside `skip`; in the
+        backward (the autograd engine called from the train step), that
+        of the forward op whose node runs: "bwd" and the node's
+        traceback, which anomaly mode keeps."""
+        f, site = sys._getframe(2), "<autograd engine>"
+        while f is not None:
+            name = f.f_code.co_filename
+            if name.startswith(src) and not name.endswith(skip):
+                site = f"{name[len(src):]}:{f.f_lineno}"
+                break
+            f = f.f_back
+        node = torch._C._current_autograd_node()
+        if node is None or not site.startswith(engine):
+            return site
+        for frame in reversed(node.metadata.get("traceback_", [])):
+            m = re.match(r'\s*File "([^"]+)", line (\d+)', frame)
+            if m and m.group(1).startswith(src) and not m.group(
+                    1).endswith(skip):
+                return f"bwd {m.group(1)[len(src):]}:{m.group(2)}"
+        return site
 
     class Sites(TorchDispatchMode):
+        """Each rank-local op by call site: the ops, and what the
+        recorder counts of them (the same filter: ops on the trace's fake
+        tensors), FLOPs and collective result bytes."""
+
+        def __init__(self):
+            super().__init__()
+            self.entry_mode = active_fake_mode()
+
         def __torch_dispatch__(self, func, types, fargs=(), kwargs=None):
             from torch.distributed.tensor import DTensor
             if any(issubclass(t, DTensor) for t in types):
                 return NotImplemented
-            f, site = sys._getframe(1), "<autograd engine>"
-            while f is not None:
-                name = f.f_code.co_filename
-                if name.startswith(src) and not name.endswith(skip):
-                    site = f"{name[len(src):]}:{f.f_lineno}"
-                    break
-                f = f.f_back
+            kwargs = kwargs or {}
+            site = _site()
             counts[site] += 1
-            return func(*fargs, **(kwargs or {}))
+            out = func(*fargs, **kwargs)
+            if active_fake_mode() is self.entry_mode and any(
+                    isinstance(t, FakeTensor)
+                    for t in pytree.tree_leaves(out)):
+                packet = func._overloadpacket
+                if packet in registry:
+                    flops[site] += int(registry[packet](*fargs, **kwargs,
+                                                        out_val=out))
+                op = dryrun.collective_name(str(func))
+                if op is not None:
+                    coll[f"{site} {op}"] += dryrun._result_bytes(out)
+            return out
 
     recorder_cls, started = dryrun.CaseRecorder, []
 
@@ -195,8 +297,9 @@ def profile(args):
 
         class Both:
             def __enter__(self):
-                started.append(time.perf_counter())
-                signal.alarm(args.seconds)
+                if not started:
+                    started.append(time.perf_counter())
+                    signal.alarm(args.seconds)
                 rec.__enter__()
                 sites.__enter__()
                 return self
@@ -220,16 +323,24 @@ def profile(args):
     signal.signal(signal.SIGALRM, stop)
     status = "traced"
     try:
-        dryrun.run_case(args.arch, args.shape, verbose=False)
+        with torch.autograd.set_detect_anomaly(True, check_nan=False):
+            dryrun.run_case(args.arch, args.shape, verbose=False,
+                            multi_pod=args.multi_pod)
     except Exception:  # noqa: BLE001 -- DTensor may wrap the alarm's error
         if not stopped:
             raise
         status = "cut"
+    signal.alarm(0)
     seconds = time.perf_counter() - started[0]
-    total = sum(counts.values())
     print(json.dumps({"arch": args.arch, "shape": args.shape,
+                      "mesh": "2x16x16" if args.multi_pod else "16x16",
                       "status": status, "seconds": round(seconds, 1),
-                      "ops": total, "top": counts.most_common(12)}))
+                      "ops": sum(counts.values()),
+                      "top": counts.most_common(args.top),
+                      "flops": sum(flops.values()),
+                      "top_flops": flops.most_common(args.top),
+                      "collective_bytes": sum(coll.values()),
+                      "top_collectives": coll.most_common(args.top)}))
     return 0
 
 
@@ -240,6 +351,10 @@ def main(argv=None):
     r.add_argument("out")
     r.add_argument("--full", action="store_true")
     r.add_argument("--multi-pod", action="store_true")
+    r.add_argument("--oracle", action="store_true",
+                   help="the reference's compile (tools/reference_dryrun.py)")
+    r.add_argument("--unrolled", action="store_true",
+                   help="with --oracle: every jax.lax.scan unrolled")
     r.add_argument("--archs", type=lambda s: s.split(","), default=())
     r.add_argument("--shapes", type=lambda s: s.split(","), default=())
     r.add_argument("--jobs", type=int, default=4)
@@ -247,6 +362,9 @@ def main(argv=None):
     c = sub.add_parser("compare")
     c.add_argument("scaled")
     c.add_argument("full")
+    cr = sub.add_parser("compare-reference")
+    cr.add_argument("port")
+    cr.add_argument("ref")
     k = sub.add_parser("peak-rules")
     k.add_argument("arch")
     k.add_argument("shape")
@@ -255,8 +373,11 @@ def main(argv=None):
     p.add_argument("arch")
     p.add_argument("shape")
     p.add_argument("--seconds", type=int, default=120)
+    p.add_argument("--multi-pod", action="store_true")
+    p.add_argument("--top", type=int, default=12)
     args = ap.parse_args(argv)
-    return {"run": run, "compare": compare, "peak-rules": peak_rules,
+    return {"run": run, "compare": compare,
+            "compare-reference": compare_reference, "peak-rules": peak_rules,
             "profile": profile}[args.cmd](args)
 
 
