@@ -133,6 +133,7 @@ last line is {"ok": true, "device": {...}}. Without a CUDA device, or
 without the rest of the checkout, the script exits non-zero and prints no
 result.
 """
+import contextlib
 import dataclasses
 import json
 import statistics
@@ -387,6 +388,8 @@ REMAT_LADDER = {False: (2048, 4096, 8192), True: (2048, 4096, 8192, 16384)}
 # NCCL ranks cannot share one card: the multi-rank checks are the CPU
 # tests' (tests/test_torch_distributed.py, 4 gloo ranks).
 DIST_STEPS = 3
+# phase 6i c: qwen2-1.5b's batch-1 prefill length and decode steps
+DIST_PROMPT, DIST_DECODE = 512, 8
 DIST_RTOL = 1e-6
 # phase 6a's neighbour: the paper's pipeline, examples/serve_hierarchical
 # on the port (the offline phase, 60 steps per ICU workload, then
@@ -2207,7 +2210,14 @@ def drive_distribution(torch, kernels, card, zamba_cfg, zamba_params):
       b. zamba2-2.7b's loss and every gradient on 6g's weights at
          REMAT_BATCH x REMAT_SEQ, unmeshed and on the mesh (residual
          replicated): within DIST_RTOL, the same ssm_scan and flash
-         launches.
+         launches;
+      c. qwen2-1.5b at full width and depth, bf16, a batch of one: a
+         DIST_PROMPT-token prefill and DIST_DECODE greedy decode steps,
+         unmeshed and on the mesh (a batch that does not divide a dp
+         mesh dim of more than one rank would take the local products;
+         on the (1, 1) mesh none is taken): logits bit-equal, the same
+         tokens and launches (a flash launch per layer in the prefill,
+         none in decode); seconds of each.
     Destroys the process group at the end. Returns {run: launches}."""
     import gc
 
@@ -2333,10 +2343,81 @@ def drive_distribution(torch, kernels, card, zamba_cfg, zamba_params):
     expect_launches("phase 6i zamba2-2.7b meshed", out["zamba2 meshed=True"],
                     want)
     del res, g0, g1, grads, batch, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    out.update(drive_meshed_decode(torch, kernels, card, mesh))
     dist.destroy_process_group()
     gc.collect()
     torch.cuda.empty_cache()
     print(f"phase 6i: {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+def drive_meshed_decode(torch, kernels, card, mesh):
+    """Phase 6i c (`drive_distribution`): qwen2-1.5b's batch-1 prefill and
+    greedy decode steps unmeshed and on `mesh`, each run's counters set
+    to 0 just before it and read just after. Returns {run: launches}."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import make_batch, shard_batch
+    from repro_torch.models import build_model
+    from repro_torch.sharding import policy
+    cuda = torch.device("cuda")
+    t_part = time.perf_counter()
+    cfg = get_config("qwen2-1.5b")
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=cuda).manual_seed(0),
+                        device=cuda)
+    prompt = {k: v.to(cuda) for k, v in
+              make_batch(cfg, 1, DIST_PROMPT, seed=0).items()}
+    out, runs = {}, {}
+    with torch.no_grad():
+        for meshed in (False, True):
+            p, batch = params, prompt
+            if meshed:
+                p = policy.distribute(params, policy.param_specs(params, mesh),
+                                      mesh)
+                batch = shard_batch(prompt, mesh)
+            for k in kernels.values():
+                k.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with (policy.activation_policy(mesh) if meshed
+                  else contextlib.nullcontext()):
+                logits, cache = model.prefill(p, batch,
+                                              max_len=DIST_PROMPT + DIST_DECODE)
+                steps = [logits]
+                for _ in range(DIST_DECODE):
+                    token = torch.argmax(steps[-1], dim=-1)
+                    logits, cache = model.decode_step(p, token, cache)
+                    steps.append(logits)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            out[f"qwen2 decode meshed={meshed}"] = {
+                n: k.launches for n, k in kernels.items()}
+            runs[meshed] = [(x.full_tensor() if policy.is_dtensor(x) else x)
+                            .float() for x in steps]
+            print(f"[{card}] phase 6i qwen2-1.5b batch 1, {DIST_PROMPT}-token "
+                  f"prefill + {DIST_DECODE} decode steps, meshed={meshed}: "
+                  f"{secs:.3f} s (host clock after a synchronise, first "
+                  f"run); launches {out[f'qwen2 decode meshed={meshed}']}")
+            del p, batch, cache, logits
+    equal = all(bool(torch.equal(a, b)) for a, b in zip(runs[False],
+                                                         runs[True]))
+    gap = max(float((a - b).abs().max()) for a, b in zip(runs[False],
+                                                          runs[True]))
+    finite = all(bool(torch.isfinite(x).all()) for x in runs[False])
+    print(f"[{card}] phase 6i qwen2-1.5b decode: logits of the prefill and "
+          f"{DIST_DECODE} steps bit-equal meshed vs unmeshed {equal} (max "
+          f"|gap| {gap:.3e}), finite {finite}; {time.perf_counter() - t_part:.1f}"
+          f" s with the init")
+    if not equal or not finite:
+        raise RuntimeError("phase 6i qwen2-1.5b decode: meshed logits differ "
+                           "from unmeshed")
+    want = dict({n: 0 for n in kernels}, flash_attention=cfg.num_layers)
+    for meshed in (False, True):
+        expect_launches(f"phase 6i qwen2-1.5b decode meshed={meshed}",
+                        out[f"qwen2 decode meshed={meshed}"], want)
+    del params, runs
     return out
 
 

@@ -8,12 +8,15 @@ card: a CUDA tensor launches the kernel or raises.
 Called with DTensors (a model under an activation policy), an op runs the
 same local call on each rank's shards in a `local_map` region, so no
 DTensor reaches a kernel's launch: batch on the dp mesh dims, heads on
-"model" where they divide (replicated there otherwise), the sequence
-whole. An operand in another layout is redistributed to it first. The
-mLSTM cell stays model-replicated, as the reference pins its inputs to
-(DP, None, None). With q heads on "model" and kv heads that do not
-divide it, each rank takes the kv heads its q heads map to, (offset + j)
-// group; a split that cannot map that way raises.
+"model" where they divide, the sequence whole. Where the heads do not
+divide "model" (qwen2-1.5b's 12 and gemma-2b's 8 on 16 ranks), each
+"model" rank takes its slice of the query rows against every key rather
+than repeating all of them. An operand in another layout is
+redistributed to it first. The mLSTM cell stays model-replicated, as the
+reference pins its inputs to (DP, None, None). With q heads on "model"
+and kv heads that do not divide it, each rank takes the kv heads its q
+heads map to, (offset + j) // group; a split that cannot map that way
+raises.
 """
 from __future__ import annotations
 
@@ -30,16 +33,27 @@ __all__ = ["attention", "lstm_step", "lstm_layer", "ssm", "mlstm",
 
 
 def _attention_local(q, k, v, causal, window, softcap, scale, block_q,
-                     block_k):
+                     block_k, q_offset=None):
+    """Attention on local tensors; with `q_offset` (causal only) the
+    queries are the rows from that position on, not the last Lq."""
     if q.device.type != "cpu":
+        if q_offset is not None:
+            # the keys after the last query are masked for every row: the
+            # kernel's own alignment, on the keys up to it
+            end = q_offset + q.shape[-2]
+            k, v = k[:, :, :end].contiguous(), v[:, :, :end].contiguous()
         return flash_attention(q, k, v, causal=causal, window=window,
                                softcap=softcap, scale=scale,
                                block_q=block_q, block_k=block_k)
-    if q.shape[-2] >= 1024:  # production shapes: block-wise, memory-bounded
+    # production shapes: block-wise, memory-bounded
+    if q.shape[-2] >= 1024 or (q_offset is not None
+                               and k.shape[-2] >= 1024):
         return ref.attention_blockwise(q, k, v, causal=causal, window=window,
-                                       softcap=softcap, scale=scale)
+                                       softcap=softcap, scale=scale,
+                                       q_offset=q_offset)
     return ref.attention_reference(q, k, v, causal=causal, window=window,
-                                   softcap=softcap, scale=scale)
+                                   softcap=softcap, scale=scale,
+                                   q_offset=q_offset)
 
 
 def attention(q, k, v, *, causal=True, window=None, softcap=None,
@@ -64,12 +78,21 @@ def attention(q, k, v, *, causal=True, window=None, softcap=None,
                              f"do not map onto whole kv heads")
     q_pl = policy.layout(mesh, b, heads_dim=1 if heads else None)
     kv_pl = policy.layout(mesh, b, heads_dim=1 if kv_split else None)
+    lq, lk = q.shape[2], k.shape[2]
+    offset = None
+    if (tp > 1 and not heads and lq % tp == 0 and lq <= lk
+            and (causal or window is None)):
+        # the query rows split on "model", each rank's from its offset
+        q_pl = tuple(_shard(2) if name == "model" else pl
+                     for name, pl in zip(mesh.mesh_dim_names, q_pl))
+        if causal:
+            offset = lk - lq + mesh.get_local_rank("model") * (lq // tp)
 
     def body(ql, kl, vl):
         if lo is not None:
             kl, vl = kl[:, lo:hi], vl[:, lo:hi]
         return _attention_local(ql.contiguous(), kl.contiguous(),
-                                vl.contiguous(), *args)
+                                vl.contiguous(), *args, q_offset=offset)
 
     return policy.run_local(body, mesh, (q, k, v), (q_pl, kv_pl, kv_pl),
                             q_pl)

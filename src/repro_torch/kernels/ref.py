@@ -80,13 +80,15 @@ def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, causal: bool = True,
                         window: Optional[int] = None,
                         softcap: Optional[float] = None,
-                        scale: Optional[float] = None) -> torch.Tensor:
+                        scale: Optional[float] = None,
+                        q_offset: Optional[int] = None) -> torch.Tensor:
     """Full-softmax attention oracle.
 
     q: (B, Hq, Lq, D); k, v: (B, Hkv, Lk, D) with Hq % Hkv == 0 (GQA).
     When Lq != Lk the queries are aligned to the END of the key sequence
     (decode convention: query position i corresponds to absolute position
-    Lk - Lq + i). A row with no live key averages over all keys, as the
+    Lk - Lq + i), or start at `q_offset` where it is given (a slice of
+    the queries). A row with no live key averages over all keys, as the
     reference's softmax over -1e30 logits does. Returns (B, Hq, Lq, D) in
     q.dtype.
     """
@@ -107,7 +109,8 @@ def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if softcap is not None:
         logits = softcap * torch.tanh(logits / softcap)
 
-    q_pos = torch.arange(lq, device=q.device)[:, None] + (lk - lq)
+    q_pos = torch.arange(lq, device=q.device)[:, None] + (
+        lk - lq if q_offset is None else q_offset)
     k_pos = torch.arange(lk, device=q.device)[None, :]
     mask = causal_window_mask(q_pos, k_pos, causal, window)
     logits = logits.masked_fill(~mask[None, None], NEG_INF)
@@ -121,11 +124,12 @@ def attention_blockwise(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         window: Optional[int] = None,
                         softcap: Optional[float] = None,
                         scale: Optional[float] = None,
-                        block_q: int = 512) -> torch.Tensor:
-    """Memory-bounded attention: the same math as attention_reference,
-    one q block at a time, so the (Lq, Lk) logits are never whole. For
-    windowed attention each q block reads only a (window + block_q) key
-    slice, as the reference does."""
+                        block_q: int = 512,
+                        q_offset: Optional[int] = None) -> torch.Tensor:
+    """Memory-bounded attention: the same math as attention_reference
+    (`q_offset` too), one q block at a time, so the (Lq, Lk) logits are
+    never whole. For windowed attention each q block reads only a
+    (window + block_q) key slice, as the reference does."""
     b, hq, lq, d = q.shape
     _, hkv, lk, _ = k.shape
     if hq % hkv:
@@ -136,8 +140,9 @@ def attention_blockwise(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     bq = min(block_q, lq)
     if lq % bq:
         return attention_reference(q, k, v, causal=causal, window=window,
-                                   softcap=softcap, scale=scale)
-    q_off = lk - lq
+                                   softcap=softcap, scale=scale,
+                                   q_offset=q_offset)
+    q_off = lk - lq if q_offset is None else q_offset
     kf = torch.repeat_interleave(k, group, dim=1) if group > 1 else k
     vf = torch.repeat_interleave(v, group, dim=1) if group > 1 else v
     use_slice = window is not None and (window + bq) < lk

@@ -66,22 +66,17 @@ def _hd_sharded(w, dim: int) -> bool:
     return any(pl == Shard(dim) for pl in w.placements)
 
 
-def _d_split(x) -> bool:
-    """A DTensor whose last dim (d_model) is split on a mesh dim."""
-    if not policy.is_dtensor(x):
-        return False
-    from torch.distributed.tensor import Shard
-    return any(pl == Shard(x.ndim - 1) for pl in x.placements)
-
-
 def project_heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """einsum("bld,dhe->bhle"): (B, L, d) @ (d, H, hd) -> (B, H, L, hd).
     With head_dim split on a mesh dim (`_hd_sharded`), the product runs
     over (d, hd * H) with head_dim outermost, so the split stays one even
-    block per rank; einsum's (H * hd) would split inside heads. Tokens
-    split on d_model run on local shards under autograd
-    (`_local_heads`)."""
-    if (_d_split(x) and torch.is_grad_enabled()
+    block per rank; einsum's (H * hd) would split inside heads. DTensor
+    tokens run on local shards under autograd (`_local_heads`); tokens
+    held whole by every dp rank, or a decode step's, meet the weight
+    where it lies (`policy.local_einsum`)."""
+    if policy.decode_local(x, w):
+        return policy.local_einsum("bld,dhe->bhle", x, w)
+    if (policy.is_dtensor(x) and torch.is_grad_enabled()
             and (x.requires_grad or w.requires_grad)):
         return _local_heads(x, w)
     if not _hd_sharded(w, 2):
@@ -94,10 +89,16 @@ def project_heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 def project_out(y: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
     """einsum("bhle,hed->bld"): (B, H, L, hd) @ (H, hd, d) -> (B, L, d),
     contracted over (hd, H) when head_dim is split (as `project_heads`).
-    With heads split on "model", under grad, it runs on local shards
-    (`_local_out`)."""
+    With heads or head_dim split on "model", under grad, it runs on local
+    shards (`_local_out`); a decode step's y, or y whose query rows are
+    split on "model" (`ops.attention` where the heads do not divide it),
+    meets wo where it lies (`policy.local_einsum`): the rows stay split,
+    the output split on the sequence there."""
+    if policy.decode_local(y, wo) or policy.split_on_model(y, 2):
+        return policy.local_einsum("bhle,hed->bld", y, wo)
     if (torch.is_grad_enabled() and wo.requires_grad
-            and policy.split_on_model(wo, 0)):
+            and (policy.split_on_model(wo, 0)
+                 or policy.split_on_model(wo, 1))):
         return _local_out(y, wo)
     if not _hd_sharded(wo, 1):
         return torch.einsum("bhle,hed->bld", y, wo)
@@ -108,20 +109,25 @@ def project_out(y: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
 
 def _local_out(y, wo):
     """`project_out` on local shards in a `local_map` region (row
-    parallel): y with its batch on dp and its heads on "model", wo with
-    its heads on "model" and its FSDP split of d_model gathered; the
-    output a partial sum over "model". DTensor's backward of the einsum
-    gathers y's heads and repeats the weight's gradient on every "model"
-    rank (zamba2-2.7b's train step, 16 x 16: 32x the forward's FLOPs)."""
+    parallel): y with its batch on dp and its heads (or head_dim) on
+    "model", wo with its heads (or head_dim) on "model" and its FSDP split
+    of d_model gathered; the output a partial sum over "model". DTensor's
+    backward of the einsum gathers y's heads and repeats the weight's
+    gradient on every "model" rank (zamba2-2.7b's train step, 16 x 16:
+    32x the forward's FLOPs; with head_dim split, qwen2-1.5b's: 8.5x).
+    `policy.local_einsum` would plan the same shards, but it reduces its
+    output's partial sums as it leaves the region, where this region
+    leaves the sum over "model" to the residual."""
     from torch.distributed.tensor import Partial
     mesh = y.device_mesh
     rows = policy.layout(mesh, y.shape[0])
     out = tuple(Partial() if name == "model" else pl
                 for name, pl in zip(mesh.mesh_dim_names, rows))
+    dim = 0 if policy.split_on_model(wo, 0) else 1
     return policy.run_local(
         lambda yl, wl: torch.einsum("bhle,hed->bld", yl, wl), mesh, (y, wo),
-        (policy.layout(mesh, y.shape[0], heads_dim=1),
-         policy.layout(mesh, None, heads_dim=0)), out)
+        (policy.layout(mesh, y.shape[0], heads_dim=1 if dim == 0 else 3),
+         policy.layout(mesh, None, heads_dim=dim)), out)
 
 
 def _local_heads(x, w):
@@ -132,7 +138,12 @@ def _local_heads(x, w):
     encoder-decoder's embedding), DTensor's einsum makes each rank a
     partial sum over the whole batch, and the backward's view of that
     gradient does not fit the local strides (seamless-m4t's train step on
-    16 x 16)."""
+    16 x 16); given tokens split on the sequence, its backward takes 8.5x
+    the forward's FLOPs (mistral-large-123b's and mixtral-8x22b's train
+    steps on 16 x 16). `policy.local_einsum` keeps the tokens as they lie
+    and moves the weight instead: tokens split on the sequence over
+    "model" would gather w's heads there, tokens split on d_model over dp
+    would leave a partial sum over the whole batch."""
     from torch.distributed.tensor import Replicate, Shard
     mesh = x.device_mesh
     heads = (Shard(1), Shard(2))
@@ -148,10 +159,22 @@ def _local_heads(x, w):
         (x_pl, w_pl), out)
 
 
+def _sequence_whole(x):
+    """DTensor `x` with the split of its sequence (dim 1) over "model"
+    gathered, once for the three projections that read it (DTensor's
+    einsum gathers it for each)."""
+    if not (policy.split_on_model(x, 1) and x.shape[1] > 1):
+        return x
+    from torch.distributed.tensor import Replicate, Shard
+    return x.redistribute(x.device_mesh, tuple(
+        Replicate() if pl == Shard(1) else pl for pl in x.placements))
+
+
 def _qkv(p: dict, x: torch.Tensor, states: Optional[torch.Tensor]):
     """x: (B, L, d) queries' source; states: the keys' and values' source
     (x when None). -> q (B, Hq, L, hd), k and v (B, Hkv, S, hd)."""
-    kv_src = x if states is None else states
+    x = _sequence_whole(x)
+    kv_src = x if states is None else _sequence_whole(states)
     q = project_heads(x, p["wq"])
     k = project_heads(kv_src, p["wk"])
     v = project_heads(kv_src, p["wv"])
@@ -360,7 +383,11 @@ def _sharded_cached_attention(q, kc, vc, pos, window, cfg, *, full,
     split); where the slots are split, the softmax's max and sum and the
     value sums are reduced over that group, so the cache stays where it
     is; slots split over several mesh dims (("pod", "data")) are reduced
-    over each of their groups in turn. Decode only (no gradient)."""
+    over each of their groups in turn. Where every dp rank holds the
+    same q and cache shards (a batch of one whose slots lie on "model"),
+    each computes its slice of the output's head_dim, and the output is
+    split there on dp, as the reference's compiled plan splits it. Decode
+    only (no gradient)."""
     from torch.distributed.tensor import Replicate, Shard
     mesh = kc.device_mesh
     cache_pl = tuple(kc.placements)
@@ -368,17 +395,26 @@ def _sharded_cached_attention(q, kc, vc, pos, window, cfg, *, full,
     groups = tuple(mesh.get_group(j) for j in _slot_dims(kc))
     slot0, slots = _slot_offset(kc), kc.shape[2]
     scaled = k_scale is not None
+    out_pl, cols = q_pl, None
+    dp = policy.fsdp_axes(tuple(mesh.mesh_dim_names))
+    for j, name in enumerate(mesh.mesh_dim_names):
+        ways, hd = mesh.size(j), q.shape[-1]
+        if (name in dp and ways > 1 and policy.dp_idle(q)
+                and cache_pl[j] == Replicate() and hd % ways == 0):
+            lo = mesh.get_local_rank(j) * (hd // ways)
+            cols = (lo, lo + hd // ways)
+            out_pl = out_pl[:j] + (Shard(3),) + out_pl[j + 1:]
 
     def body(ql, kl, vl, *scales):
         ks, vs = scales if scaled else (None, None)
         return _local_cached_attention(ql, kl, vl, pos, window, cfg,
                                        full=full, k_scale=ks, v_scale=vs,
                                        slot0=slot0, total_slots=slots,
-                                       slot_groups=groups)
+                                       slot_groups=groups, cols=cols)
 
     args = (q, kc, vc) + ((k_scale, v_scale) if scaled else ())
     return policy.run_local(body, mesh, args,
-                            (q_pl,) + (cache_pl,) * (len(args) - 1), q_pl)
+                            (q_pl,) + (cache_pl,) * (len(args) - 1), out_pl)
 
 
 def _local_cached_attention(q, kc, vc, pos: Optional[int], window,
@@ -387,7 +423,8 @@ def _local_cached_attention(q, kc, vc, pos: Optional[int], window,
                             v_scale: Optional[torch.Tensor] = None,
                             slot0: int = 0,
                             total_slots: Optional[int] = None,
-                            slot_groups: tuple = ()):
+                            slot_groups: tuple = (),
+                            cols: Optional[tuple] = None):
     """q: (B, Hq, 1, hd); kc/vc: (B, Hkv, S, hd). Masked GEMV decode
     attention with grouped contractions (no repeat of the KV heads); with
     `full` every slot is live (cross attention). Both contractions read
@@ -401,7 +438,9 @@ def _local_cached_attention(q, kc, vc, pos: Optional[int], window,
     With `slot_groups`, kc/vc are slots [slot0, slot0 + S) of
     `total_slots` split over the ranks of those process groups together:
     the softmax's max and sum and the output are reduced over each group
-    in turn, which reduces them over all the ranks (flash-decode)."""
+    in turn, which reduces them over all the ranks (flash-decode). With
+    `cols` = (lo, hi) only head_dim columns [lo, hi) of the output are
+    computed."""
     b, hq, _, hd = q.shape
     hkv = kc.shape[1]
     slots = total_slots or kc.shape[2]
@@ -440,8 +479,10 @@ def _local_cached_attention(q, kc, vc, pos: Optional[int], window,
         probs = e / total
     if v_scale is not None:
         probs = probs * v_scale[:, :, None, :]
+    if cols is not None:
+        vc = vc[..., cols[0]:cols[1]]
     out = torch.einsum("bkgs,bkse->bkge", probs.to(compute).to(f32),
                        vc.to(f32))
     for g in slot_groups:
         dist.all_reduce(out, group=g)
-    return out.reshape(b, hq, 1, hd).to(q.dtype)
+    return out.reshape(b, hq, 1, vc.shape[-1]).to(q.dtype)

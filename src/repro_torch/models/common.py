@@ -56,6 +56,16 @@ def norm_init(dim: int, dtype: torch.dtype = f32,
     return torch.zeros((dim,), dtype=dtype, device=device)
 
 
+# --------------------------------------------------------------- embedding
+def embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """The rows of `table` that `tokens` name; a DTensor table split on dp
+    for tokens held whole by every dp rank is read where it lies
+    (`policy.local_lookup`)."""
+    if policy.fsdp_local(tokens, table):
+        return policy.local_lookup(table, tokens)
+    return table[tokens]
+
+
 # ---------------------------------------------------------------------- rope
 def rope(x: torch.Tensor, positions: torch.Tensor,
          theta: float) -> torch.Tensor:
@@ -88,23 +98,27 @@ def mlp_init(generator: torch.Generator, cfg: ModelConfig,
 def mlp_apply(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """x plus the MLP of its norm. DTensor weights whose d_ff is split on
     "model", on rows whose batch is split on dp, run Megatron's MLP in a
-    `run_local` region (`_mlp_local`)."""
+    `run_local` region (`_mlp_local`); on rows held whole by every dp rank
+    the weights are multiplied where they lie (`policy.local_matmul`)."""
     h = rms_norm(x, p["norm"], cfg.norm_eps)
     if policy.split_on_model(p["w_up"], 1) and _rows_on_dp(h):
         return x + _mlp_local(p, h, cfg)
-    return x + _mlp(h, p["w_up"], p.get("w_gate"), p["w_down"], cfg.mlp_type)
+    mm = (policy.local_matmul if policy.fsdp_local(h, p["w_up"])
+          else torch.matmul)
+    return x + _mlp(h, p["w_up"], p.get("w_gate"), p["w_down"], cfg.mlp_type,
+                    mm)
 
 
-def _mlp(h, w_up, w_gate, w_down, mlp_type: str):
-    up = h @ w_up
+def _mlp(h, w_up, w_gate, w_down, mlp_type: str, mm=torch.matmul):
+    up = mm(h, w_up)
     # jax.nn.gelu defaults to the tanh approximation
     if mlp_type == "swiglu":
-        up = F.silu(h @ w_gate) * up
+        up = F.silu(mm(h, w_gate)) * up
     elif mlp_type == "geglu":
-        up = F.gelu(h @ w_gate, approximate="tanh") * up
+        up = F.gelu(mm(h, w_gate), approximate="tanh") * up
     else:
         up = F.gelu(up, approximate="tanh")
-    return up @ w_down
+    return mm(up, w_down)
 
 
 def _rows_on_dp(h) -> bool:
@@ -122,7 +136,10 @@ def _mlp_local(p: dict, h, cfg: ModelConfig):
     sums where it needs it. DTensor's own plans of these products may
     repeat them on every dp rank: zamba2-2.7b's shared MLP on 16 x 16
     (its backward 8-17x the forward), qwen2-1.5b's decode on 2 x 16 x 16
-    (6.4x the oracle's FLOPs)."""
+    (6.4x the oracle's FLOPs). `policy.local_matmul` would plan each
+    product's shards alike, but it reduces each output's partial sums as
+    it leaves its region (the down product's over "model"), and it does
+    not take h's gradient summed over "model" (`policy.summed_grad`)."""
     from torch.distributed.tensor import Partial
     mesh = h.device_mesh
     rows = policy.layout(mesh, h.shape[0])

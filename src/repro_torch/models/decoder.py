@@ -318,7 +318,7 @@ class DecoderModel:
 
     # -------------------------------------------------------------- pieces
     def _embed(self, p: dict, tokens: torch.Tensor) -> torch.Tensor:
-        x = constrain_residual(p["embed"][tokens])
+        x = constrain_residual(common.embed(p["embed"], tokens))
         # sqrt(d) rounded to the model's dtype, as the reference scales;
         # a Python scalar, so nothing is copied to the device
         scale = float(torch.tensor(math.sqrt(self.cfg.d_model),
@@ -329,12 +329,15 @@ class DecoderModel:
         cfg = self.cfg
         x = common.rms_norm(x, p["final_norm"], cfg.norm_eps)
         w = p["embed"].t() if cfg.tie_embeddings else p["unembed"]
-        if torch.is_grad_enabled() and w.requires_grad:
+        mm = torch.matmul
+        if policy.fsdp_local(x, w):
+            mm = policy.local_matmul
+        elif torch.is_grad_enabled() and w.requires_grad:
             # gathered off dp: with d_model split on dp, DTensor's backward
             # of the product gathers the logits' gradient over dp, and the
             # residual stream's gradient leaves it replicated there
             w = policy.gathered(w)
-        logits = (x @ w).to(torch.float32)
+        logits = mm(x, w).to(torch.float32)
         if cfg.final_logit_softcap is not None:
             logits = common.softcap(logits, cfg.final_logit_softcap)
         return _mask_vocab_pad(logits, cfg.vocab_size)

@@ -19,6 +19,7 @@ from repro_torch.configs import base
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import common
+from repro_torch.sharding import policy
 from repro_torch.models.decoder import (TransformerStack, _mask_vocab_pad,
                                         chunked_nll, fake_init,
                                         next_token_targets, padded_vocab)
@@ -79,7 +80,7 @@ class EncDecModel:
         return common.rms_norm(x, p["enc_norm"], self.cfg.norm_eps)
 
     def _embed(self, p: dict, tokens: torch.Tensor) -> torch.Tensor:
-        x = p["embed"][tokens]
+        x = common.embed(p["embed"], tokens)
         # sqrt(d) rounded to the model's dtype, as the reference scales
         scale = float(torch.tensor(math.sqrt(self.cfg.d_model),
                                    dtype=x.dtype))
@@ -89,7 +90,9 @@ class EncDecModel:
         cfg = self.cfg
         x = common.rms_norm(x, p["final_norm"], cfg.norm_eps)
         w = p["embed"].t() if cfg.tie_embeddings else p["unembed"]
-        return _mask_vocab_pad((x @ w).to(torch.float32), cfg.vocab_size)
+        mm = (policy.local_matmul if policy.fsdp_local(x, w)
+              else torch.matmul)
+        return _mask_vocab_pad(mm(x, w).to(torch.float32), cfg.vocab_size)
 
     def forward(self, p: dict, batch: dict):
         """Full-sequence forward. Returns (logits, aux)."""

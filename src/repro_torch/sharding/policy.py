@@ -27,6 +27,14 @@ While a policy is active, DTensor's `implicit_replication` is on too: the
 plain tensors the models make (rope frequencies, masks, zero states) mix
 with DTensors as replicated values.
 
+A decode step's products run on the shards where the weights lie
+(`local_einsum`, `local_lookup`): for a token that every dp rank holds
+whole (a batch that does not divide dp) each rank multiplies its FSDP
+shard and the token-sized partial result is summed, as the reference's
+compiled plan does; a batch split on dp brings its few rows to the weight
+rather than gathering the weight. DTensor's own plans of these products
+gather the weights over dp and repeat the work there.
+
 On a mesh with a "pod" axis, DTensors live on its `placement_mesh`: the
 same ranks as a 2-D ("data", "model") mesh whose "data" is pod x data,
 pod-major. "pod" is never named without "data" (`fsdp_axes`, the DP
@@ -533,6 +541,271 @@ def layout(mesh, batch, heads_dim=None) -> tuple:
         else:
             out.append(Replicate())
     return tuple(out)
+
+
+def dp_idle(x) -> bool:
+    """DTensor `x` whose batch (dim 0) does not divide its mesh's dp mesh
+    dims, of more than one rank: every dp rank holds all of `x` (a
+    batch-1 decode), and work on it is repeated there unless something
+    splits it."""
+    if not is_dtensor(x):
+        return False
+    sizes = axis_sizes(x.device_mesh)
+    dp_size = math.prod(sizes.get(a, 1) for a in fsdp_axes(tuple(sizes)))
+    return dp_size > 1 and not _div(x.shape[0], dp_size)
+
+
+def split_on_dp(w) -> bool:
+    """DTensor `w` split on one of its mesh's dp mesh dims (FSDP)."""
+    if not is_dtensor(w):
+        return False
+    from torch.distributed.tensor import Shard
+    dp = fsdp_axes(tuple(w.device_mesh.mesh_dim_names))
+    return any(name in dp and isinstance(pl, Shard)
+               for name, pl in zip(w.device_mesh.mesh_dim_names,
+                                   w.placements))
+
+
+def fsdp_local(x, w) -> bool:
+    """The product of activation `x` and weight `w` runs where `w` lies
+    (`local_einsum`): `x` held whole on every dp rank (`dp_idle`) and `w`
+    split on dp. DTensor's own plan of such a product gathers `w` over dp
+    and repeats the product on every dp rank."""
+    return dp_idle(x) and split_on_dp(w)
+
+
+def moves_rows(x, w) -> bool:
+    """A decode step (`_decode_step`) whose DTensor `x` has its batch (dim
+    0) split on the same dp mesh dim as DTensor `w`, and this rank's rows
+    of `x` are fewer elements than its shard of `w`: the rows, not the
+    weight, should move."""
+    if not (_decode_step(x) and is_dtensor(w)):
+        return False
+    from torch.distributed.tensor import Shard
+    dp = fsdp_axes(tuple(w.device_mesh.mesh_dim_names))
+    return any(name in dp and xp == Shard(0) and isinstance(wp, Shard)
+               for name, xp, wp in zip(w.device_mesh.mesh_dim_names,
+                                       x.placements, w.placements)) \
+        and _local_numel(x) < _local_numel(w)
+
+
+def _decode_step(x) -> bool:
+    """DTensor `x` is a decode step's activation: one position (its dim
+    -2), no gradient taken, on a mesh of more than one rank."""
+    return (is_dtensor(x) and x.ndim >= 2 and x.shape[-2] == 1
+            and not torch.is_grad_enabled() and x.device_mesh.size() > 1)
+
+
+def decode_local(x, w) -> bool:
+    """The product of a decode step's activation `x` (`_decode_step`) and
+    DTensor weight `w` runs on the shards where they lie
+    (`local_einsum`). DTensor's own plans of a decode step's attention
+    projections repeat them on every "model" rank (where head_dim is
+    split) or on every rank of a 32-wide dp dim."""
+    return _decode_step(x) and is_dtensor(w)
+
+
+def dp_group(mesh):
+    """The process group of `mesh`'s dp mesh dim (a placement mesh has
+    one: "data", pod-major over ("pod", "data"))."""
+    (name,) = [n for n in mesh.mesh_dim_names
+               if n in fsdp_axes(tuple(mesh.mesh_dim_names))]
+    return mesh.get_group(name)
+
+
+def settle(y, placements):
+    """DTensor `y` redistributed to `placements` one mesh dim at a time,
+    its partial sums first: each reduced on the shards as they lie, before
+    any gather makes them larger."""
+    from torch.distributed.tensor import Partial
+    mesh = y.device_mesh
+    for j in sorted(range(mesh.ndim),
+                    key=lambda j: not isinstance(y.placements[j], Partial)):
+        if y.placements[j] != placements[j]:
+            y = y.redistribute(mesh, tuple(
+                placements[j] if i == j else pl
+                for i, pl in enumerate(y.placements)))
+    return y
+
+
+def _settled(mesh, placements) -> tuple:
+    """The placements of activations around a local product's output
+    placed by `placements`: every `Partial` reduced, every split of a dim
+    other than the batch (dim 0) on a dp mesh dim gathered; a batch split
+    on dp and the splits on "model" kept."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    dp = fsdp_axes(tuple(mesh.mesh_dim_names))
+    return tuple(Replicate() if isinstance(pl, Partial) or (
+        name in dp and pl != Shard(0)) else pl
+        for name, pl in zip(mesh.mesh_dim_names, placements))
+
+
+def summed(y):
+    """DTensor `y` placed as the activations around it (`_settled`)."""
+    return settle(y, _settled(y.device_mesh, y.placements))
+
+
+def _local_numel(t) -> int:
+    return (t.to_local() if is_dtensor(t) else t).numel()
+
+
+def _einsum_placements(spec: str, x, w) -> tuple:
+    """(x's, w's, the output's placements in the region, the output's
+    placements after it) for `torch.einsum(spec, x, w)` on each rank's
+    shards, mesh dim by mesh dim:
+
+      * `x` split on a letter only it and the output have (its batch):
+        where `w` is split too, the smaller of the two moves: `w`
+        gathered (FSDP's gather), or `x`'s rows brought together and
+        split as `w` is (an all-to-all, or a gather where `w`'s letter is
+        not `x`'s), the output taken back to the batch's split after the
+        region (a reduce-scatter or an all-to-all); else `x` kept, the
+        output split alike;
+      * `w` split on a letter, or `x` split on a letter `w` has and is
+        split on nowhere else: `w` where it lies (or sliced alike, free),
+        `x` split on the same letter (a free slice where `x` is
+        replicated), the output split on it, or `Partial` where the
+        letter is contracted;
+      * else, on a mesh dim of more than one rank, the work split there
+        rather than repeated: `w` sliced (free) on the first letter it is
+        split on nowhere else whose size the mesh dim divides, one only it
+        and the output have (the output split alike), or else one it
+        contracts with `x` (`x` sliced alike, the output `Partial`);
+      * else everything replicated (`x` gathered).
+
+    After the region every `Partial` is reduced and every split of a dim
+    other than the batch on a dp mesh dim gathered (`summed`)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    ins, out = spec.split("->")
+    xs, ws = ins.split(",")
+    mesh = w.device_mesh
+    x_pl = (tuple(x.placements) if is_dtensor(x)
+            else (Replicate(),) * mesh.ndim)
+    taken = {ws[pl.dim] for pl in w.placements if isinstance(pl, Shard)}
+    move_rows = _local_numel(x) < _local_numel(w)
+    xp, wp, op, back = [], [], [], {}
+    for j, (cur, wcur) in enumerate(zip(x_pl, w.placements)):
+        xc = xs[cur.dim] if isinstance(cur, Shard) else None
+        if xc is not None and xc in out and xc not in ws:
+            if not (isinstance(wcur, Shard) and move_rows):
+                xp.append(cur)
+                wp.append(Replicate())
+                op.append(Shard(out.index(xc)))
+                continue
+            back[j] = Shard(out.index(xc))
+            xc = None
+        c = (ws[wcur.dim] if isinstance(wcur, Shard) else
+             xc if xc is not None and xc in ws and xc not in taken
+             else None)
+        if c is None and mesh.size(j) > 1:
+            free = [a for i, a in enumerate(ws) if a not in taken
+                    and w.shape[i] % mesh.size(j) == 0]
+            c = next((a for a in free if a in out and a not in xs),
+                     next((a for a in free if a in xs and a not in out),
+                          None))
+            if c is not None:
+                taken.add(c)
+        if c is None:
+            xp.append(Replicate())
+            wp.append(Replicate())
+            op.append(Replicate())
+            continue
+        xp.append(Shard(xs.index(c)) if c in xs else Replicate())
+        wp.append(Shard(ws.index(c)))
+        op.append(Shard(out.index(c)) if c in out else Partial())
+    after = tuple(back.get(j, pl) for j, pl in
+                  enumerate(_settled(mesh, op)))
+    return tuple(xp), tuple(wp), tuple(op), after
+
+
+def local_einsum(spec: str, x, w):
+    """`torch.einsum(spec, x, w)` with DTensor weight `w` multiplied where
+    it lies, in a `run_local` region (`_einsum_placements`): `w` at its
+    own placements where it is split, sliced (free) where a mesh dim
+    would otherwise repeat the work, gathered only where `x`'s batch is
+    split and `w` is the smaller (after the slices: the gather carries
+    this rank's columns alone); `x` sliced to the part each shard of `w`
+    contracts; the output partial over the mesh dims that split a
+    contracted dim, then reduced, mesh dim by mesh dim, the partial sums
+    first: a collective of the activations' size, never of the
+    weight's, but for the FSDP gather. For a token held whole by every
+    dp rank (`fsdp_local`), a column-parallel weight (d_model on dp, the
+    output dim on "model") gives the output split on "model", a
+    row-parallel one (the contraction dim on "model", d_model on dp)
+    gives it whole."""
+    from torch.distributed.tensor import Replicate
+    xp, wp, op, after = _einsum_placements(spec, x, w)
+    mesh = w.device_mesh
+    sliced = tuple(t if t != Replicate() else pl
+                   for pl, t in zip(w.placements, wp))
+    for placements in (sliced, wp):
+        if placements != tuple(w.placements):
+            w = w.redistribute(mesh, placements)
+    y = run_local(lambda a, b: torch.einsum(spec, a, b), mesh, (x, w),
+                  (xp, wp), op)
+    return settle(y, after)
+
+
+def local_matmul(x, w):
+    """`x @ w` of a (B, L, k) activation and a (k, n) weight, multiplied
+    where `w` lies (`local_einsum`)."""
+    return local_einsum("blk,kn->bln", x, w)
+
+
+def exchange_columns(t, have, need, rank: int, group):
+    """Inside a `run_local` region: the columns `need[rank]` ((lo, hi)
+    ranges, in order) of a tensor whose last dim is cut over the ranks of
+    `group`, rank q holding the columns `have[q]` = (lo, hi) and this rank
+    `t`: one all-to-all that carries each rank only the columns it needs
+    from each other (where a gather would carry all of them)."""
+    from torch.distributed._functional_collectives import all_to_all_single
+
+    def cols(src, dst):
+        lo, hi = have[src]
+        return [c for a, b in need[dst] for c in range(max(a, lo),
+                                                        min(b, hi))]
+
+    send = [cols(rank, q) for q in range(len(have))]
+    recv = [cols(q, rank) for q in range(len(have))]
+    idx = [c - have[rank][0] for s in send for c in s]
+    flat = t.movedim(-1, 0)[torch.tensor(idx, device=t.device)]
+    got = all_to_all_single(flat.contiguous(), [len(r) for r in recv],
+                            [len(s) for s in send], group)
+    pos = {c: i for i, c in enumerate(c for r in recv for c in r)}
+    want = [pos[c] for a, b in need[rank] for c in range(a, b)]
+    return got[torch.tensor(want, device=t.device)].movedim(0, -1)
+
+
+def local_lookup(table, ids):
+    """`table[ids]` of a DTensor table split on its rows (the vocabulary,
+    on "model") and its columns (d_model, on dp), for ids held whole on
+    every dp rank (`dp_idle`), where the table lies: each rank takes the
+    rows of its shard that the ids name (zeros for the others) at its
+    columns, and the result is `summed` (vocab-parallel). DTensor's own
+    plan of the index gathers the table over dp."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    mesh = table.device_mesh
+    offset = 0
+    out = []
+    for j, pl in enumerate(table.placements):
+        if pl == Shard(0):
+            offset = mesh.get_local_rank(j) * (table.shape[0]
+                                               // mesh.size(j))
+            out.append(Partial())
+        elif pl == Shard(1):
+            out.append(Shard(ids.ndim))
+        else:
+            out.append(Replicate())
+
+    def body(tl, il):
+        rows = tl.shape[0]
+        hit = (il >= offset) & (il < offset + rows)
+        got = tl[torch.where(hit, il - offset, 0)]
+        return torch.where(hit[..., None], got, torch.zeros_like(got))
+
+    rep = (Replicate(),) * mesh.ndim
+    return summed(run_local(body, mesh, (table, ids),
+                            (tuple(table.placements), rep), tuple(out)))
 
 
 def run_local(fn, mesh, args, in_placements, out_placements):

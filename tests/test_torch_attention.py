@@ -83,6 +83,50 @@ def test_blockwise_long_matches_reference(window):
                                rtol=ATOL)
 
 
+def test_blockwise_lq_greater_than_lk_matches_reference():
+    """Causal blockwise attention with more queries than keys (a negative
+    query offset), over an even number of q blocks: port against JAX, and
+    against the full reference on every row with a live key."""
+    lq, lk = 2048, 1024
+    q, k, v = _qkv(1, 2, 1, lq, lk, 32, seed=5)
+    want = np.asarray(jax_ref.attention_blockwise(
+        *map(jnp.asarray, (q, k, v)), causal=True, block_q=256))
+    tq, tk, tv = map(torch.from_numpy, (q, k, v))
+    out = ref.attention_blockwise(tq, tk, tv, causal=True, block_q=256)
+    assert out.shape == tq.shape
+    np.testing.assert_allclose(out.numpy(), want, atol=ATOL, rtol=ATOL)
+    full = ref.attention_reference(tq, tk, tv, causal=True)
+    live = slice(lq - lk, None)
+    np.testing.assert_allclose(out.numpy()[:, :, live],
+                               full.numpy()[:, :, live], atol=ATOL,
+                               rtol=ATOL)
+
+
+@pytest.mark.parametrize("window", [None, 100])
+@pytest.mark.parametrize("plain", ["reference", "blockwise"])
+def test_query_rows_from_an_offset_match_the_reference_rows(plain, window):
+    """A slice of the query rows against every key, placed by `q_offset`
+    (each "model" rank's rows where the heads do not divide it): the
+    reference's full attention at those rows, for both plain paths and
+    for `ops._attention_local`, which takes the blockwise path when the
+    keys are long."""
+    lq, rows = 2048, 512
+    q, k, v = _qkv(1, 4, 2, lq, lq, 32, seed=9)
+    want = np.asarray(jax_ref.attention_reference(
+        *map(jnp.asarray, (q, k, v)), causal=True, window=window))
+    tq, tk, tv = map(torch.from_numpy, (q, k, v))
+    fn = getattr(ref, f"attention_{plain}")
+    for off in (0, 768, lq - rows):
+        ql = tq[:, :, off:off + rows]
+        out = fn(ql, tk, tv, causal=True, window=window, q_offset=off)
+        np.testing.assert_allclose(out.numpy(), want[:, :, off:off + rows],
+                                   atol=ATOL, rtol=ATOL)
+    local = ops._attention_local(ql, tk, tv, True, window, None, None, 128,
+                                 128, q_offset=off)
+    np.testing.assert_allclose(local.numpy(), want[:, :, off:off + rows],
+                               atol=ATOL, rtol=ATOL)
+
+
 @pytest.mark.parametrize("lq", [128, 1024])
 def test_ops_attention_on_cpu_takes_the_reference_path(lq):
     """On CPU tensors `ops.attention` runs the plain path the reference's

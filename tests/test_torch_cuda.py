@@ -1,7 +1,7 @@
 """Tests that need the card: the CUDA kernels (lstm_cell, lstm_sequence,
 flash_attention, ssm_scan, mlstm_chunk) against their plain versions
 (lstm_cell and lstm_sequence also on bf16 inputs, flash_attention also
-with more queries than keys), the
+with more queries than keys and on query rows from an offset), the
 bf16 (tensor-core) and float32 (CUDA-core) kernels of ssm_scan and
 mlstm_chunk against each other, the bf16 flash kernel against
 scaled_dot_product_attention, the reduced zamba2 and xlstm models on CUDA
@@ -264,6 +264,29 @@ def test_flash_attention_kernel_matches_plain(cuda, case, dtype):
     torch.testing.assert_close(out.float(),
                                flash_attention_plain(q, k, v, **kw).float(),
                                atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("window", [None, 100])
+def test_query_rows_from_an_offset_launch_the_kernel(cuda, window):
+    """`ops._attention_local` on a slice of the query rows placed by
+    `q_offset` (a "model" rank's rows where the heads do not divide it):
+    one launch of the kernel on the keys up to the slice's last query,
+    against the full plain attention's rows."""
+    from repro_torch.kernels import ops
+    g = torch.Generator().manual_seed(11)
+    q, k, v = (torch.randn(2, 4, 512, 64, generator=g).to(cuda)
+               for _ in range(3))
+    k, v = k[:, :2].contiguous(), v[:, :2].contiguous()
+    full = flash_attention_plain(q, k, v, causal=True, window=window)
+    for off in (0, 192, 384):
+        before = flash_attention.launches
+        out = ops._attention_local(q[:, :, off:off + 128].contiguous(), k, v,
+                                   True, window, None, None, 128, 128,
+                                   q_offset=off)
+        torch.cuda.synchronize()
+        assert flash_attention.launches == before + 1
+        torch.testing.assert_close(out, full[:, :, off:off + 128],
+                                   atol=2e-5, rtol=2e-5)
 
 
 def test_flash_attention_bf16_matches_sdpa(cuda):

@@ -2,7 +2,9 @@
 against the reference: sharded training of reduced qwen2 on a (2 data x
 2 model) mesh, one step of mixtral (TP MoE, the LM head in chunks),
 zamba2 (remat, residual replicated) and xlstm (dp-only cell), decode on
-sharded caches (a batch of one on a (pod x data x model) mesh too), the
+sharded caches (a batch of one on a (pod x data x model) mesh too),
+decode with every weight multiplied where it lies (a batch of one on
+the (2 x 2) mesh, and xlstm's batch on dp), the
 expert-parallel MoE on a (1 x 4) mesh, the GQA head mapping, the ICU
 LSTM's op on batch shards, and `launch.train --mesh host`.
 
@@ -182,14 +184,33 @@ def test_sharded_training_matches_single_device_and_reference(ranks):
 def test_sharded_loss_and_grads_match_single_device(ranks, arch):
     """One loss and every gradient on the (2 x 2) mesh against one
     device: loss within 1e-5, each gradient within 1e-3 of its largest
-    entry."""
+    entry. mixtral's experts run in the TP dispatch region of
+    `_sharded_moe` (its train_4k and prefill_32k path), never in the
+    decode step's region."""
     res = _case(ranks, f"one_step/{arch}")
+    moe = arch.startswith("mixtral")
+    assert res["moe_regions"]["where_they_lie"] == 0, res["moe_regions"]
+    assert (res["moe_regions"]["tp"] > 0) == moe, res["moe_regions"]
     assert abs(res["loss_sharded"] - res["loss_single"]) <= 1e-5, res
     assert res["nonzero"]
     bad = {k: v for k, v in res["grad_rel"].items() if not v <= 1e-3}
     assert not bad, bad
     want = "seq" if arch.startswith("mixtral") else "replicated"
     assert res["residual"] == want
+
+
+@pytest.mark.parametrize("window", torch_dist_cases.ROWS_SPLIT_WINDOWS)
+def test_attention_rows_split_over_model_match_single_device(ranks, window):
+    """Reduced qwen2 with 3 heads on the (2 x 2) mesh: the heads do not
+    divide "model", so each model rank attends its half of the query
+    rows (rank 0's from offset 0); loss within 1e-5 and each gradient
+    within 1e-3 of its largest entry, as the other archs' step."""
+    res = _case(ranks, f"rows_split/{window}")
+    assert res["rows_split"] > 0 and res["offsets"] == [0], res
+    assert abs(res["loss_sharded"] - res["loss_single"]) <= 1e-5, res
+    assert res["nonzero"]
+    bad = {k: v for k, v in res["grad_rel"].items() if not v <= 1e-3}
+    assert not bad, bad
 
 
 def test_sharded_encdec_step_matches_single_device(ranks):
@@ -223,6 +244,24 @@ def test_sharded_decode_matches_single_device(ranks, arch, kv, mesh):
     if mesh == "2x2x1":
         assert res["cache_mesh"] == "{'data': 4, 'model': 1}", res
         assert res["cache_placements"] == "(Shard(dim=2), Replicate())"
+
+
+@pytest.mark.parametrize("arch,batch", torch_dist_cases.FSDP_DECODE,
+                         ids=[f"{a}-b{b}" for a, b in
+                              torch_dist_cases.FSDP_DECODE])
+def test_decode_multiplies_weights_where_they_lie(ranks, arch, batch):
+    """Decode steps on the (2 x 2) mesh with each FSDP weight multiplied
+    where it lies (`policy.local_einsum`, the experts' and the mamba
+    mixer's regions, the vocab-parallel lookup, the mLSTM step on C's
+    shards): logits within 1e-4 of one device over DECODE_STEPS steps;
+    at batch 1 (the token held whole by both dp ranks) a step's
+    all-gathers, under CommDebugMode, carry fewer bytes than one layer's
+    local weight shard, so no weight is gathered (the parent gathered
+    each weight over dp: 1.9-3.6x a layer's shard)."""
+    res = _case(ranks, f"decode_fsdp/{arch}/{batch}")
+    assert res["max_abs"] < 1e-4, res
+    if batch == 1:
+        assert res["gather_bytes"] < res["layer_bytes"], res
 
 
 def test_ep_moe_matches_tp_path_and_reference(ranks):

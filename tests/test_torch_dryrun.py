@@ -374,14 +374,17 @@ def test_cut_walk_records_what_the_full_walk_records(walk, mode):
 
 
 # ------------------------------------------------- the reference's oracle
-# the reference's compiles in two processes (tools/reference_dryrun.py
+# prefill_32k's (seq_len, batch), the mistral-large-123b prefill case below
+PREFILL = (32768, 32)
+# the reference's compiles in three processes (tools/reference_dryrun.py
 # forces 512 host devices and rebinds the mesh to Auto axes there; argv 3
 # picks the part): qwen2-1.5b
 # decode_32k read scaled and unrolled; a reduced zamba2 train step whose
 # SSM token scans run inside the group scan inside the microbatch scan,
-# scaled and unrolled; and the two reduced cases the port traces below,
-# on the meshes named
-ORACLE_CODE = r"""
+# scaled and unrolled; the three reduced cases the port traces below, on
+# the meshes named; and (argv 3 "batch1") the batch-1 decode cases on
+# both meshes
+ORACLE_CODE = f"PREFILL = ('prefill', *{PREFILL}, 'prefill')\n" + r"""
 import dataclasses, json, sys
 sys.path.insert(0, sys.argv[1])
 import reference_dryrun as rd
@@ -401,6 +404,17 @@ if sys.argv[3] == "unrolled":
                      for u in (False, True)]
     print(json.dumps(out))
     sys.exit()
+if sys.argv[3] == "batch1":
+    kw = json.loads(sys.argv[2])
+    for arch in kw["archs"]:
+        cfg = get_config(arch)
+        cfg = dataclasses.replace(cfg, num_groups=1,
+                                  num_layers=len(cfg.group_pattern))
+        out[arch] = [rd.compile_case(ref, cfg, ShapeConfig(
+            "decode", kw["cache"], 1, "decode"), multi_pod=mp)
+            for mp in (False, True)]
+    print(json.dumps(out))
+    sys.exit()
 kw = json.loads(sys.argv[2])
 kw["group_pattern"] = tuple(kw["group_pattern"])
 out["zamba2_decode"] = rd.compile_case(
@@ -413,8 +427,19 @@ out["train"] = [rd.compile_case(ref, gemma, ShapeConfig("train", 512, 256,
                                                         "train"),
                                 microbatches=2, multi_pod=mp)
                 for mp in (False, True)]
+mistral = get_config("mistral-large-123b")
+mistral = dataclasses.replace(mistral, num_groups=1,
+                              num_layers=len(mistral.group_pattern))
+out["prefill"] = rd.compile_case(ref, mistral, ShapeConfig(*PREFILL))
 print(json.dumps(out))
 """
+# batch-1 decode (long_500k's batch) of a dense and an MoE arch at full
+# width, cut to one group and a cache of BATCH1_CACHE slots: on the parent
+# every dp rank gathered each FSDP weight and repeated the product
+# (mixtral's experts: 14.6x the oracle's FLOPs on 16 x 16) and the
+# embedding table (all of each arch's collective bytes but ~1%)
+BATCH1_ARCHS = ("qwen2-1.5b", "mixtral-8x7b")
+BATCH1_CACHE = 64
 # zamba2-2.7b at full width cut to one group of one mamba and the shared
 # block, a small vocabulary: a decode step at batch 1 on 2 x 16 x 16. Under
 # the parent's 3-D placements its d_inner, split over all three mesh dims,
@@ -428,13 +453,28 @@ from repro_torch.configs import get_config
 from repro_torch.configs.base import ShapeConfig
 from repro_torch.launch import dryrun
 what, multi_pod = sys.argv[1], sys.argv[2] == "2x16x16"
-if what == "zamba2_decode":
+if what == "batch1":
+    rec = {}
+    for arch in json.loads(sys.argv[3]):
+        cfg = get_config(arch)
+        rec[arch] = dryrun.run_case(
+            arch, "decode", cfg=dryrun.at_depth(cfg, 1),
+            shape=ShapeConfig("decode", int(sys.argv[4]), 1, "decode"),
+            multi_pod=multi_pod, verbose=False)
+elif what == "zamba2_decode":
     kw = json.loads(sys.argv[3])
     kw["group_pattern"] = tuple(kw["group_pattern"])
     cfg = dataclasses.replace(get_config("zamba2-2.7b"), **kw)
     rec = dryrun.run_case("zamba2-2.7b", "decode", cfg=cfg,
                           shape=ShapeConfig("decode", 64, 1, "decode"),
                           multi_pod=multi_pod, verbose=False)
+elif what == "prefill":
+    seq, batch = json.loads(sys.argv[3])
+    rec = dryrun.run_case(
+        "mistral-large-123b", "prefill",
+        cfg=dryrun.at_depth(get_config("mistral-large-123b"), 1),
+        shape=ShapeConfig("prefill", seq, batch, "prefill"),
+        multi_pod=multi_pod, verbose=False)
 else:
     rec = dryrun.run_case("gemma-2b", "train",
                           cfg=dryrun.at_depth(get_config("gemma-2b"), 1),
@@ -447,17 +487,22 @@ print(json.dumps(rec))
 @pytest.fixture(scope="module")
 def oracle():
     """{"oracle": the reference's records, run: the port's record}: the
-    oracle's two processes and the port's three traces at once."""
+    oracle's processes and the port's traces at once."""
     env = dict(os.environ, PYTHONPATH=SRC, JAX_PLATFORMS="cpu")
     procs = {f"oracle/{part}": subprocess.Popen(
-        [sys.executable, "-c", ORACLE_CODE, TOOLS, json.dumps(ZAMBA2_DECODE),
+        [sys.executable, "-c", ORACLE_CODE, TOOLS,
+         json.dumps({"archs": BATCH1_ARCHS, "cache": BATCH1_CACHE}
+                    if part == "batch1" else ZAMBA2_DECODE),
          part], stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
-        env=env) for part in ("unrolled", "cases")}
+        env=env) for part in ("unrolled", "cases", "batch1")}
     for what, mesh in (("zamba2_decode", "2x16x16"), ("train", "16x16"),
-                       ("train", "2x16x16")):
+                       ("train", "2x16x16"), ("batch1", "16x16"),
+                       ("batch1", "2x16x16"), ("prefill", "16x16")):
+        arg = {"batch1": BATCH1_ARCHS,
+               "prefill": PREFILL}.get(what, ZAMBA2_DECODE)
         procs[f"{what}/{mesh}"] = subprocess.Popen(
-            [sys.executable, "-c", PORT_CODE, what, mesh,
-             json.dumps(ZAMBA2_DECODE)], stdout=subprocess.PIPE,
+            [sys.executable, "-c", PORT_CODE, what, mesh, json.dumps(arg),
+             str(BATCH1_CACHE)], stdout=subprocess.PIPE,
             stderr=subprocess.PIPE, text=True, env=env)
     out = {"oracle": {}}
     for name, proc in procs.items():
@@ -533,3 +578,44 @@ def test_multipod_train_step_is_no_further_from_the_oracle(oracle):
     r16 = port16["flops"] / ref16["dot_flops"]
     r32 = port32["flops"] / ref32["dot_flops"]
     assert r32 <= r16 * (1 + 1e-9), (r16, r32)
+
+
+def test_prefill_gathers_the_sequence_once_a_layer(oracle):
+    """mistral-large-123b's prefill at prefill_32k's 32 x 32768 tokens,
+    one group at full width, on 16 x 16, against the reference's compile
+    of the same case: FLOPs per device within 10% of the oracle's and
+    collective bytes at most 2x its. The tokens, split on the sequence
+    over "model" by the seq residual, are gathered once for the q, k and
+    v projections (`attention._sequence_whole`); DTensor's einsum
+    gathered them for each, 4.96x the oracle's bytes."""
+    rec = oracle["prefill/16x16"]
+    want = oracle["oracle"]["prefill"]
+    assert rec["devices"] == want["devices"] == 256
+    assert abs(rec["flops"] / want["dot_flops"] - 1) <= 0.10, (
+        rec["flops"], want["dot_flops"])
+    got = rec["collectives"]["total_bytes"]
+    assert got <= 2.0 * want["collectives"]["total_bytes"], (
+        got, want["collectives"])
+
+
+@pytest.mark.parametrize("mesh", ["16x16", "2x16x16"])
+@pytest.mark.parametrize("arch", BATCH1_ARCHS)
+def test_batch1_decode_multiplies_weights_where_they_lie(oracle, arch,
+                                                         mesh):
+    """A batch-1 decode step (one group at full width, BATCH1_CACHE
+    slots) against the reference's compile of the same case: the port's
+    FLOPs per device within 10% of the oracle's dot FLOPs and its
+    collective bytes at most 2x the oracle's. Each dp rank multiplies its
+    shard of every FSDP weight where it lies and sums a token-sized
+    partial result (policy.local_einsum, the experts' region, the
+    vocab-parallel lookup), as the reference's compiled plan does; the
+    parent gathered the weights and the embedding table over dp."""
+    rec = oracle[f"batch1/{mesh}"][arch]
+    want = oracle["oracle"][arch][mesh == "2x16x16"]
+    assert rec["devices"] == want["devices"] == (512 if mesh == "2x16x16"
+                                                 else 256)
+    assert abs(rec["flops"] / want["dot_flops"] - 1) <= 0.10, (
+        rec["flops"], want["dot_flops"])
+    got = rec["collectives"]["total_bytes"]
+    assert got <= 2.0 * want["collectives"]["total_bytes"], (
+        got, want["collectives"])

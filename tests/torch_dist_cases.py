@@ -7,6 +7,7 @@ process and hands it over as numpy files.
 writes {case: result} to workdir/results.json; a case that raises records
 its traceback there instead, so the others still run.
 """
+import contextlib
 import dataclasses
 import json
 import os
@@ -115,6 +116,37 @@ def encdec_step(mesh):
     return _step_case(cfg, True, 512, mesh)
 
 
+# attention whose heads do not divide "model" (qwen2-1.5b's 12 and
+# gemma-2b's 8 on 16 ranks): reduced qwen2 with 3 heads and one kv head on
+# the (2 x 2) mesh, each "model" rank its half of the query rows; with no
+# window, and with a window of 8 of the 32 positions
+ROWS_SPLIT_WINDOWS = (None, 8)
+
+
+def rows_split_step(mesh, window):
+    """`one_step` of reduced qwen2 with 3 heads (and `window`), and the
+    number of attention calls this rank ran on its query rows from an
+    offset (`ops._attention_local`'s `q_offset`)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    cfg = get_config("qwen2-1.5b").reduced(layers=2, d_model=128, vocab=256)
+    cfg = dataclasses.replace(cfg, num_heads=3, num_kv_heads=1, head_dim=32,
+                              attn_window=window)
+    local, rows = ops._attention_local, []
+
+    def spy(*a, q_offset=None, **kw):
+        rows.append(q_offset)
+        return local(*a, q_offset=q_offset, **kw)
+
+    ops._attention_local = spy
+    try:
+        res = _step_case(cfg, False, 512, mesh)
+    finally:
+        ops._attention_local = local
+    return dict(res, rows_split=sum(o is not None for o in rows),
+                offsets=sorted({o for o in rows if o is not None}))
+
+
 def _step_case(cfg, remat, chunk, mesh):
     from repro_torch.data.pipeline import make_batch, shard_batch
     from repro_torch.models import build_model
@@ -138,15 +170,43 @@ def _step_case(cfg, remat, chunk, mesh):
     dp = policy.distribute({k: v for k, v in p.items()},
                            policy.param_specs(p, mesh), mesh)
     residual = policy.residual_for(cfg)
-    with policy.activation_policy(mesh, residual=residual):
+    with policy.activation_policy(mesh, residual=residual), \
+            _moe_regions() as regions:
         loss1, grads1 = loss_and_grads(dp, shard_batch(batch, mesh))
     names = [k for k, _ in _flat(p)]
     worst = {n: float((a - b).abs().max()) / max(float(b.abs().max()),
                                                  1e-6)
              for n, a, b in zip(names, grads1, grads0)}
     return {"loss_single": float(loss0), "loss_sharded": float(loss1),
-            "residual": residual, "grad_rel": worst,
+            "residual": residual, "moe_regions": regions, "grad_rel": worst,
             "nonzero": all(float(b.abs().max()) > 0 for b in grads0)}
+
+
+@contextlib.contextmanager
+def _moe_regions():
+    """Counts the MoE dispatches of DTensor tokens by region while it is
+    open: "tp" (the dispatch on each rank's batch shard with the experts'
+    d_ff on "model", `blocks._sharded_moe`) and "where_they_lie"
+    (`blocks._experts_where_they_lie`, a decode step's)."""
+    from repro_torch.models import blocks
+    counts = {"tp": 0, "where_they_lie": 0}
+    moe, lie = blocks._sharded_moe, blocks._experts_where_they_lie
+
+    def sharded(*a, **kw):
+        counts["tp"] += 1
+        return moe(*a, **kw)
+
+    def where_they_lie(*a, **kw):
+        counts["tp"] -= 1
+        counts["where_they_lie"] += 1
+        return lie(*a, **kw)
+
+    blocks._sharded_moe = sharded
+    blocks._experts_where_they_lie = where_they_lie
+    try:
+        yield counts
+    finally:
+        blocks._sharded_moe, blocks._experts_where_they_lie = moe, lie
 
 
 # decode cases: (arch, kv cache dtype, mesh): kv heads on model (2 x 2),
@@ -168,18 +228,97 @@ def decode(arch, kv, mesh, batch):
     cache placed by `cache_specs` (written and read on each rank's shard,
     flash-decode where the slots are split) against one device."""
     from repro_torch.configs import get_config
-    from repro_torch.data.pipeline import shard_batch
-    from repro_torch.models import build_model
-    from repro_torch.sharding import policy
     cfg = get_config(arch)
     cfg = cfg.reduced(layers=2, d_model=128, vocab=256)
     cfg = dataclasses.replace(cfg, kv_cache_dtype=kv, num_kv_heads=2,
                               attn_window=8 if cfg.attn_window else None)
+    res = _decode_steps(cfg, mesh, batch)
+    res.pop("params")
+    first = res.pop("cache")["groups"][0]["b0_" + cfg.group_pattern[0]]
+    first = first["attn"]["k"]
+    return dict(res, cache_placements=str(first.placements),
+                cache_mesh=str(dict(zip(first.device_mesh.mesh_dim_names,
+                                        first.device_mesh.shape))))
+
+
+# decode on the (2 x 2) mesh with every weight multiplied where it lies
+# (arch, batch): at batch 1 the token is held whole by both dp ranks: a
+# dense MLP and GQA projections (qwen2), TP experts (mixtral), a tied
+# head and one kv head, the cache's slots on "model" and the output's
+# head_dim split over dp (gemma-2b), the mamba mixer's decode region
+# (zamba2, with as many SSM heads as head_dim so that, as at full width,
+# the SSM state's heads are the dim "model" splits), the xLSTM cells'
+# dp-only weights with their work split over "model" and the mLSTM step
+# on C's shards (xlstm cut to one mLSTM and one sLSTM block, with 3
+# mLSTM heads, which, as at full width, the cache rules do not split);
+# at batch 4, the batch on dp: the experts
+# where they lie, each rank's rows brought to them (mixtral), and the
+# xLSTM
+FSDP_DECODE = (("qwen2-1.5b", 1), ("mixtral-8x7b", 1), ("gemma-2b", 1),
+               ("zamba2-2.7b", 1), ("xlstm-350m", 1), ("mixtral-8x7b", 4),
+               ("xlstm-350m", 4))
+
+
+def decode_fsdp(arch, mesh, batch):
+    """`_decode_steps` of the reduced arch (its own kv heads), with the
+    result bytes of every all-gather of a step and the local bytes of one
+    layer's weights on this rank."""
+    from repro_torch.configs import get_config
+    from repro_torch.sharding import policy
+    cfg = get_config(arch)
+    cfg = cfg.reduced(layers=2, d_model=192 if cfg.family == "ssm" else 128,
+                      vocab=256)
+    if cfg.family == "hybrid":
+        cfg = dataclasses.replace(cfg, ssm_num_heads=16, ssm_head_dim=16)
+    elif cfg.ssm_num_heads:
+        cfg = dataclasses.replace(cfg, ssm_num_heads=3, ssm_head_dim=128,
+                                  group_pattern=("mlstm", "slstm"),
+                                  num_layers=2)
+    res = _decode_steps(cfg, mesh, batch)
+    layer = policy.local_bytes(res.pop("params")["stack"]) / cfg.num_layers
+    res.pop("cache")
+    return dict(res, layer_bytes=layer)
+
+
+class _GatherBytes:
+    """`torch.distributed.tensor.debug.CommDebugMode` that also sums the
+    result bytes of the all-gathers it sees."""
+
+    def __new__(cls):
+        from torch.distributed.tensor.debug import CommDebugMode
+
+        class Mode(CommDebugMode):
+            def __init__(self):
+                super().__init__()
+                self.gather_bytes = 0
+
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                out = super().__torch_dispatch__(func, types, args, kwargs)
+                name = str(func)
+                if out is not NotImplemented and (
+                        "all_gather" in name or "allgather" in name):
+                    self.gather_bytes += sum(
+                        t.numel() * t.element_size()
+                        for t in torch.utils._pytree.tree_leaves(out)
+                        if isinstance(t, torch.Tensor))
+                return out
+
+        return Mode()
+
+
+def _decode_steps(cfg, mesh, batch):
+    """DECODE_STEPS decode steps from an empty cache on one device and on
+    DTensor parameters with a cache placed by `cache_specs`: the largest
+    logit difference, the most all-gather bytes of a meshed step, and the
+    meshed parameters and cache."""
+    from repro_torch.data.pipeline import shard_batch
+    from repro_torch.models import build_model
+    from repro_torch.sharding import policy
     model = build_model(cfg)
     p = model.init(torch.Generator().manual_seed(0), device="cpu")
     toks = torch.randint(0, cfg.vocab_size, (DECODE_STEPS, batch),
                          generator=torch.Generator().manual_seed(1))
-    worst = 0.0
+    worst, gathered = 0.0, 0
     with torch.no_grad():
         c0 = model.init_cache(batch, 16, device="cpu")
         dp = policy.distribute(p, policy.param_specs(p, mesh), mesh)
@@ -187,15 +326,13 @@ def decode(arch, kv, mesh, batch):
         c1 = policy.distribute(c1, policy.cache_specs(c1, mesh), mesh)
         for t in toks:
             l0, c0 = model.decode_step(p, t, c0)
-            with policy.activation_policy(mesh):
+            with policy.activation_policy(mesh), _GatherBytes() as comm:
                 l1, c1 = model.decode_step(
                     dp, shard_batch({"t": t}, mesh)["t"], c1)
+            gathered = max(gathered, comm.gather_bytes)
             worst = max(worst, float((_full(l1) - l0).abs().max()))
-    first = c1["groups"][0]["b0_" + cfg.group_pattern[0]]["attn"]["k"]
-    return {"max_abs": worst,
-            "cache_placements": str(first.placements),
-            "cache_mesh": str(dict(zip(first.device_mesh.mesh_dim_names,
-                                       first.device_mesh.shape)))}
+    return {"max_abs": worst, "gather_bytes": gathered, "params": dp,
+            "cache": c1}
 
 
 def ep_moe(workdir, mesh_1x4):
@@ -341,10 +478,15 @@ def run(rank, world, workdir):
              **{f"one_step/{a}": (lambda a=a: one_step(a, mesh))
                 for a in ONE_STEP_ARCHS},
              "encdec": lambda: encdec_step(mesh),
+             **{f"rows_split/{w}": (lambda w=w: rows_split_step(mesh, w))
+                for w in ROWS_SPLIT_WINDOWS},
              **{f"decode/{a}/{kv}/{m}": (
                  lambda a=a, kv=kv, m=m: decode(a, kv, meshes[m],
                                                 DECODE_BATCH[m]))
                 for a, kv, m in DECODE_CASES},
+             **{f"decode_fsdp/{a}/{b}": (
+                 lambda a=a, b=b: decode_fsdp(a, mesh, b))
+                for a, b in FSDP_DECODE},
              "ep": lambda: ep_moe(workdir, mesh_1x4),
              "gqa": lambda: gqa(mesh_1x4),
              "lstm": lambda: lstm_layer(mesh),
